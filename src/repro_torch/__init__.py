@@ -1,0 +1,3 @@
+"""PyTorch/CUDA port of the DecentralizePy emulator (see ``repro`` for the
+JAX reference)."""
+from repro_torch.core.engine import DLConfig, RoundEngine

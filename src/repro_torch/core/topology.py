@@ -1,0 +1,289 @@
+"""Graph module: the overlay topology (numpy; tables bitwise those of the
+JAX package's ``core/topology.py``).
+
+* :class:`Graph` — dense (N, N) boolean adjacency, for construction and
+  file I/O.
+* :class:`SparseTopology` — padded (N, D) neighbor and Metropolis-Hastings
+  weight tables, the form sparse overlays are executed in.  Built in numpy;
+  the engine moves it to the device once with :meth:`SparseTopology.to`.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Graph:
+    """Undirected overlay graph over ``n`` nodes; adjacency as a bool matrix
+    (no self loops stored; every node implicitly talks to itself)."""
+
+    adj: np.ndarray  # (n, n) bool, symmetric, zero diagonal
+
+    @staticmethod
+    def ring(n: int) -> "Graph":
+        adj = np.zeros((n, n), bool)
+        idx = np.arange(n)
+        adj[idx, (idx + 1) % n] = True
+        adj[(idx + 1) % n, idx] = True
+        return Graph(adj)
+
+    @staticmethod
+    def fully_connected(n: int) -> "Graph":
+        adj = np.ones((n, n), bool)
+        np.fill_diagonal(adj, False)
+        return Graph(adj)
+
+    @staticmethod
+    def star(n: int, center: int = 0) -> "Graph":
+        adj = np.zeros((n, n), bool)
+        adj[center, :] = True
+        adj[:, center] = True
+        adj[center, center] = False
+        return Graph(adj)
+
+    @staticmethod
+    def regular_circulant(n: int, degree: int) -> "Graph":
+        """d-regular circulant graph: neighbors at offsets ±1, ±2, … (plus
+        n/2 if the degree is odd and n even)."""
+        assert 0 < degree < n
+        adj = np.zeros((n, n), bool)
+        idx = np.arange(n)
+        for o in circulant_offsets(n, degree):
+            adj[idx, (idx + o) % n] = True
+            adj[(idx + o) % n, idx] = True
+        return Graph(adj)
+
+    @staticmethod
+    def random_regular(n: int, degree: int, seed: int) -> "Graph":
+        """Random d-regular graph (see :func:`random_regular_neighbors`)."""
+        nbr = random_regular_neighbors(n, degree, seed)
+        adj = np.zeros((n, n), bool)
+        adj[np.repeat(np.arange(n), degree), nbr.reshape(-1)] = True
+        return Graph(adj)
+
+    @staticmethod
+    def from_edge_list(path: str, n: int) -> "Graph":
+        adj = np.zeros((n, n), bool)
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#"):
+                    continue
+                a, b = map(int, line.split()[:2])
+                adj[a, b] = adj[b, a] = True
+        np.fill_diagonal(adj, False)
+        return Graph(adj)
+
+    @property
+    def n(self) -> int:
+        return self.adj.shape[0]
+
+    def degrees(self) -> np.ndarray:
+        return self.adj.sum(1)
+
+    def neighbor_table(self) -> Tuple[np.ndarray, np.ndarray]:
+        return neighbor_table(self.adj)
+
+    def metropolis_hastings(self) -> np.ndarray:
+        """Symmetric doubly-stochastic mixing matrix W (Xiao–Boyd):
+        W_ij = 1 / (1 + max(deg_i, deg_j)) for edges, diagonal = residual."""
+        deg = self.degrees()
+        n = self.n
+        W = np.zeros((n, n))
+        ii, jj = np.nonzero(self.adj)
+        W[ii, jj] = 1.0 / (1.0 + np.maximum(deg[ii], deg[jj]))
+        W[np.arange(n), np.arange(n)] = 1.0 - W.sum(1)
+        return W
+
+
+def neighbor_table(adj: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(nbr (N, dmax) int32, valid (N, dmax) bool) padded neighbor lists;
+    short rows are padded with the node's own index and marked invalid."""
+    n = adj.shape[0]
+    dmax = max(int(adj.sum(1).max()) if n else 0, 1)
+    nbr = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, dmax))
+    valid = np.zeros((n, dmax), bool)
+    for r in range(n):
+        ns = np.nonzero(adj[r])[0]
+        nbr[r, : len(ns)] = ns
+        valid[r, : len(ns)] = True
+    return nbr, valid
+
+
+def circulant_offsets(n: int, degree: int) -> List[int]:
+    """Offsets of the d-regular circulant graph."""
+    offs = list(range(1, degree // 2 + 1))
+    if degree % 2 == 1:
+        assert n % 2 == 0, "odd degree needs even n (antipodal offset)"
+        offs.append(n // 2)
+    return offs
+
+
+def circulant_neighbor_table(n: int, degree: int) -> np.ndarray:
+    """(N, degree) int32 neighbor table of the d-regular circulant graph,
+    built from the offsets without the (N, N) adjacency; rows sorted
+    ascending, as :func:`neighbor_table` gives them."""
+    assert 0 < degree < n
+    assert n <= np.iinfo(np.int32).max, "node ids are int32 on device"
+    idx = np.arange(n, dtype=np.int64)[:, None]
+    cols = []
+    for o in circulant_offsets(n, degree):
+        cols.append((idx + o) % n)
+        if (2 * o) % n != 0:  # the antipodal offset is its own inverse
+            cols.append((idx - o) % n)
+    nbr = np.concatenate(cols, axis=1)
+    nbr.sort(axis=1)
+    return nbr.astype(np.int32)
+
+
+def random_regular_neighbors(n: int, degree: int, seed: int) -> np.ndarray:
+    """(N, degree) int32 neighbor table of a random simple d-regular graph:
+    configuration model with batched re-pairing of self-loops and repeated
+    edges, falling back to circulant + double-edge swaps."""
+    assert 0 < degree < n and n * degree % 2 == 0, "n*degree must be even"
+    assert n <= np.iinfo(np.int32).max, "node ids are int32 on device"
+    rng = np.random.default_rng(seed)
+    stubs = np.repeat(np.arange(n, dtype=np.int64), degree)
+    rng.shuffle(stubs)
+    e = stubs.reshape(-1, 2)
+    for _ in range(500):
+        a, b = e.min(1), e.max(1)
+        key = a * n + b
+        order = np.argsort(key, kind="stable")
+        dup_sorted = np.zeros(key.shape, bool)
+        sk = key[order]
+        dup_sorted[1:] = sk[1:] == sk[:-1]
+        bad = a == b
+        bad[order] |= dup_sorted
+        n_bad = int(bad.sum())
+        if n_bad == 0:
+            src = np.concatenate([a, b])
+            dst = np.concatenate([b, a])
+            o = np.argsort(src, kind="stable")
+            return dst[o].reshape(n, degree).astype(np.int32)
+        good = np.nonzero(~bad)[0]
+        k = min(good.size, max(2 * n_bad, 8))
+        pool = np.concatenate([np.nonzero(bad)[0], rng.choice(good, k, replace=False)])
+        mixed = e[pool].reshape(-1)
+        rng.shuffle(mixed)
+        e[pool] = mixed.reshape(-1, 2)
+    return _random_regular_swaps(n, degree, rng)
+
+
+def _random_regular_swaps(n: int, degree: int, rng) -> np.ndarray:
+    adj = Graph.regular_circulant(n, degree).adj
+    edges = [tuple(e) for e in np.argwhere(np.triu(adj))]
+    swaps, target = 0, 10 * len(edges)
+    for _ in range(100 * target):
+        if swaps >= target:
+            break
+        i, j = rng.integers(0, len(edges), 2)
+        if i == j:
+            continue
+        (a, b), (c, d) = edges[i], edges[j]
+        if rng.random() < 0.5:
+            c, d = d, c
+        if len({a, b, c, d}) < 4 or adj[a, c] or adj[b, d]:
+            continue
+        adj[a, b] = adj[b, a] = adj[c, d] = adj[d, c] = False
+        adj[a, c] = adj[c, a] = adj[b, d] = adj[d, b] = True
+        edges[i], edges[j] = (a, c), (b, d)
+        swaps += 1
+    ii, jj = np.nonzero(adj)
+    return jj.reshape(n, degree).astype(np.int32)
+
+
+def mh_weight_table(nbr: np.ndarray, valid: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Metropolis–Hastings weights in neighbor-slot form: (w (N, D) float32,
+    0 on padding; w_self (N,) float32, the diagonal residual)."""
+    deg = valid.sum(1).astype(np.float64)
+    w = np.where(valid, 1.0 / (1.0 + np.maximum(deg[:, None], deg[nbr])), 0.0)
+    w_self = 1.0 - w.sum(1)
+    return w.astype(np.float32), w_self.astype(np.float32)
+
+
+@dataclasses.dataclass(eq=False)
+class SparseTopology:
+    """Neighbor-indexed mixing topology: padded (N, D) tables.
+
+    ``nbr[i, k]`` is node i's k-th neighbor (padded with i itself),
+    ``w[i, k]`` its weight (0 on padding) and ``w_self[i]`` the diagonal
+    weight.  Fields are numpy arrays, or tensors after :meth:`to`.
+    """
+
+    nbr: object     # (N, D) int32
+    w: object       # (N, D) float32
+    w_self: object  # (N,) float32
+    _merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default=None, init=False, repr=False
+    )
+
+    @property
+    def n(self) -> int:
+        return self.nbr.shape[-2]
+
+    @property
+    def dmax(self) -> int:
+        return self.nbr.shape[-1]
+
+    def stage_bytes(self) -> int:
+        """Host->device bytes of the tables (vs 4·N² for a dense W)."""
+        return int(sum(np.asarray(a).nbytes for a in (self.nbr, self.w, self.w_self)))
+
+    def to(self, device) -> "SparseTopology":
+        """The same tables as tensors on ``device``."""
+        return SparseTopology(
+            torch.as_tensor(np.asarray(self.nbr), dtype=torch.int32, device=device),
+            torch.as_tensor(np.asarray(self.w), dtype=torch.float32, device=device),
+            torch.as_tensor(np.asarray(self.w_self), dtype=torch.float32, device=device),
+        )
+
+    def merge_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(rows (N, 1+D) int32, weights (N, 1+D) fp32): the self slot
+        first, then the neighbor slots — the operands of the fused merge
+        kernel.  Built once per topology and cached."""
+        if self._merge is None:
+            from repro_torch.kernels.gossip_mix import merge_tables
+
+            self._merge = merge_tables(
+                torch.as_tensor(self.nbr), torch.as_tensor(self.w),
+                torch.as_tensor(self.w_self),
+            )
+        return self._merge
+
+    @staticmethod
+    def from_graph(g: Graph) -> "SparseTopology":
+        nbr, valid = neighbor_table(g.adj)
+        w, w_self = mh_weight_table(nbr, valid)
+        return SparseTopology(nbr, w, w_self)
+
+    @staticmethod
+    def regular_circulant(n: int, degree: int) -> "SparseTopology":
+        """Bitwise ``from_graph(Graph.regular_circulant(n, degree))``,
+        built in O(N·d) without the (N, N) adjacency."""
+        nbr = circulant_neighbor_table(n, degree)
+        w, w_self = mh_weight_table(nbr, np.ones(nbr.shape, bool))
+        return SparseTopology(nbr, w, w_self)
+
+    @staticmethod
+    def from_neighbors(nbr: np.ndarray, valid: Optional[np.ndarray] = None) -> "SparseTopology":
+        if valid is None:
+            valid = np.ones(nbr.shape, bool)
+        w, w_self = mh_weight_table(np.asarray(nbr), np.asarray(valid))
+        return SparseTopology(np.asarray(nbr, np.int32), w, w_self)
+
+    def to_dense(self) -> np.ndarray:
+        """(N, N) float32 W — the oracle for the sparse path."""
+        n, d = self.n, self.dmax
+        W = np.zeros((n, n), np.float32)
+        np.add.at(
+            W,
+            (np.repeat(np.arange(n), d), np.asarray(self.nbr).reshape(-1)),
+            np.asarray(self.w).reshape(-1),
+        )
+        W[np.arange(n), np.arange(n)] += np.asarray(self.w_self)
+        return W

@@ -1,0 +1,56 @@
+"""Per-node batch indices (numpy; bitwise those of the JAX package).
+
+Only the ``"stream"`` keying is ported: one numpy PCG64 stream per round
+fills a (steps, N, B) uniform block, mapped onto each node's partition.
+The engine keeps the dataset on the device and gathers each round's batch
+there by these indices.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+
+
+class NodeBatcher:
+    def __init__(self, data_x: np.ndarray, data_y: np.ndarray,
+                 parts: List[np.ndarray], batch_size: int, seed: int = 0):
+        self.x, self.y = data_x, data_y
+        self.parts = parts
+        self.bs = batch_size
+        self.seed = seed
+        self.n_nodes = len(parts)
+
+        lens = np.array([len(p) for p in parts], np.int64)
+        if (lens == 0).any():
+            raise ValueError(
+                f"empty partition for node(s) {np.nonzero(lens == 0)[0].tolist()}: "
+                "n_nodes * shards_per_node exceeds the dataset size"
+            )
+        pad = np.zeros((self.n_nodes, int(lens.max())), np.int64)
+        for i, p in enumerate(parts):
+            pad[i, : len(p)] = p
+            pad[i, len(p):] = p[0]
+        self._lens, self._parts_pad = lens, pad
+
+    def round_indices(self, round_idx: int, steps: int = 1) -> np.ndarray:
+        """(steps, N, B) int32 global sample indices for one round, drawn
+        uniformly with replacement from each node's partition.  A pure
+        function of the round, so chunking never changes the data."""
+        rng = np.random.default_rng(
+            (self.seed * 1_000_003 + round_idx) * 1_000_003 + 99_991
+        )
+        u = rng.random((steps, self.n_nodes, self.bs))
+        loc = (u * self._lens[None, :, None]).astype(np.int64)
+        return self._parts_pad[
+            np.arange(self.n_nodes)[None, :, None], loc
+        ].astype(np.int32)
+
+    def chunk_indices(self, start_round: int, n_rounds: int, steps: int = 1) -> np.ndarray:
+        """(R, steps, N, B) int32 indices for rounds [start, start+R)."""
+        return np.stack(
+            [self.round_indices(start_round + r, steps) for r in range(n_rounds)]
+        )
+
+    def test_batch(self, max_n: int = 512):
+        return self.x[:max_n], self.y[:max_n]

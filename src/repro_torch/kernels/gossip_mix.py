@@ -1,0 +1,152 @@
+"""Fused gather-merge gossip: the Hopper port of the JAX package's
+``kernels/gossip_mix.py`` Pallas kernels (``gossip_mix_nodes`` and
+``gossip_mix``).
+
+    out[n, :] = sum_k w[n, k] * X[rows[n, k], :]     (fp32 accumulate)
+
+One CUDA kernel (``csrc/gossip_mix.cu``) computes it, reading each operand
+row of X by index, so no (N, K, P) stack of operands is ever built.  Three
+wrappers share it:
+
+* :func:`gossip_mix_rows` — the kernel's own form;
+* :func:`gossip_mix_nodes` and :func:`gossip_mix` — the reference's stacked
+  (N, K, M) and flat (K, M) signatures;
+* :func:`mix_rows` — the engine's form, the (1+D)-way merge of each node's
+  own row with its neighbour rows.
+
+A tensor on the CPU goes to the plain twin :func:`gossip_mix_rows_ref`.  A
+CUDA tensor launches the kernel or raises: there is no fallback.  The
+kernel is compiled on its first CUDA call, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.build import load_library
+
+MAX_K = 64  # operand slots per receiver (the kernel's shared-memory table)
+_ENTRY = {torch.float32: "gossip_mix_rows_f32", torch.bfloat16: "gossip_mix_rows_bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype):
+    fn = getattr(load_library("gossip_mix"), _ENTRY[dtype])
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def merge_tables(nbr, w, w_self):
+    """(rows (N, 1+D) int32, weights (N, 1+D) fp32) of the engine's merge:
+    slot 0 is the node itself with ``w_self``, then its neighbours."""
+    n = nbr.shape[0]
+    if n and (int(nbr.min()) < 0 or int(nbr.max()) >= n):
+        raise ValueError("neighbor ids out of range [0, N)")
+    self_ids = torch.arange(n, dtype=torch.int32, device=nbr.device)[:, None]
+    rows = torch.cat([self_ids, nbr.to(torch.int32)], 1).contiguous()
+    ws = torch.cat([w_self.to(torch.float32)[:, None], w.to(torch.float32)], 1).contiguous()
+    return rows, ws
+
+
+def gossip_mix_rows_ref(X, rows, w):
+    """Plain twin of the kernel: per slot, an index-select of operand rows
+    and a weighted fp32 sum, self slot first (the kernel's order)."""
+    rows = rows.long()
+    acc = torch.zeros((rows.shape[0], X.shape[1]), dtype=torch.float32, device=X.device)
+    for k in range(rows.shape[1]):
+        acc = acc + w[:, k:k + 1].float() * X.index_select(0, rows[:, k]).float()
+    return acc.to(X.dtype)
+
+
+def _vec_width(X, out) -> int:
+    """Elements per vector access: the widest power of two up to 16 bytes
+    that divides both row strides and both base addresses (the kernel
+    masks the row's ragged tail itself)."""
+    item = X.element_size()
+    v = 16 // item
+    while v > 1 and (
+        X.stride(0) % v or out.stride(0) % v
+        or X.data_ptr() % (v * item) or out.data_ptr() % (v * item)
+    ):
+        v //= 2
+    return v
+
+
+def gossip_mix_rows(X, rows, w, out=None):
+    """out[n] = sum_k w[n, k] * X[rows[n, k]].
+
+    X (R, P) fp32 or bf16 with unit column stride; rows (N, K) int32 in
+    [0, R); w (N, K) fp32.  Returns (N, P) in X's dtype, written into
+    ``out`` when given.
+    """
+    if X.device.type == "cpu":
+        res = gossip_mix_rows_ref(X, rows, w)
+        return res if out is None else out.copy_(res)
+    if X.device.type != "cuda":
+        raise ValueError(f"gossip_mix_rows: unsupported device {X.device}")
+    if X.dtype not in _ENTRY:
+        raise TypeError(f"gossip_mix_rows: X must be float32 or bfloat16, got {X.dtype}")
+    if rows.dtype != torch.int32 or w.dtype != torch.float32:
+        raise TypeError("gossip_mix_rows: rows must be int32 and w float32")
+    if X.dim() != 2 or rows.dim() != 2 or tuple(w.shape) != tuple(rows.shape):
+        raise ValueError(
+            f"gossip_mix_rows: want X (R, P), rows (N, K), w (N, K); got "
+            f"{tuple(X.shape)}, {tuple(rows.shape)}, {tuple(w.shape)}"
+        )
+    n, k = rows.shape
+    if not 0 < k <= MAX_K:
+        raise ValueError(f"gossip_mix_rows: K={k} outside 1..{MAX_K}")
+    if rows.device != X.device or w.device != X.device:
+        raise ValueError("gossip_mix_rows: X, rows and w must share one device")
+    if X.stride(1) != 1 or not rows.is_contiguous() or not w.is_contiguous():
+        raise ValueError("gossip_mix_rows: X rows, rows and w must be contiguous")
+    if out is None:
+        out = torch.empty((n, X.shape[1]), dtype=X.dtype, device=X.device)
+    elif (tuple(out.shape) != (n, X.shape[1]) or out.dtype != X.dtype
+          or out.device != X.device or out.stride(1) != 1):
+        raise ValueError("gossip_mix_rows: out must be (N, P), X's dtype and device, unit column stride")
+    with torch.cuda.device(X.device):
+        err = _entry(X.dtype)(
+            X.data_ptr(), X.stride(0), rows.data_ptr(), w.data_ptr(), n, k,
+            X.shape[1], out.data_ptr(), out.stride(0), _vec_width(X, out),
+            torch.cuda.current_stream(X.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"gossip_mix_rows: kernel launch failed with CUDA error {err}")
+    gossip_mix_rows.launches += 1
+    return out
+
+
+gossip_mix_rows.launches = 0  # kernel launches since the last reset
+
+
+def gossip_mix_nodes(neighbors, weights):
+    """neighbors (N, K, M), weights (N, K) -> (N, M): each receiver's K-way
+    weighted merge of its own stacked operand rows."""
+    n, k, m = neighbors.shape
+    rows = torch.arange(n * k, dtype=torch.int32, device=neighbors.device).view(n, k)
+    return gossip_mix_rows(
+        neighbors.reshape(n * k, m), rows, weights.to(torch.float32).contiguous()
+    )
+
+
+def gossip_mix(neighbors, weights):
+    """neighbors (K, M), weights (K,) -> (M,)."""
+    k = neighbors.shape[0]
+    rows = torch.arange(k, dtype=torch.int32, device=neighbors.device)[None]
+    return gossip_mix_rows(
+        neighbors, rows, weights.to(torch.float32).reshape(1, k).contiguous()
+    )[0]
+
+
+def mix_rows(X, nbr, w, w_self):
+    """X (N, P), nbr (N, D), w (N, D), w_self (N,) -> (N, P):
+    x_i' = w_self_i * x_i + sum_k w[i, k] * x_nbr[i, k]."""
+    return gossip_mix_rows(X, *merge_tables(nbr, w, w_self))

@@ -1,0 +1,63 @@
+"""Parameter tree <-> flat-vector utilities.
+
+A parameter tree is a nested dict of tensors.  The flat vector orders its
+leaves by sorted dict keys at every level (the order JAX flattens dicts
+in), each leaf in row-major order, so the same parameters give the same
+vector in both packages.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List
+
+import torch
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """Leaves of a nested dict in sorted-key order."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` leafwise over nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    return fn(tree, *rest)
+
+
+def tree_size(tree) -> int:
+    """Total number of scalar parameters in a tree."""
+    return sum(math.prod(l.shape) for l in tree_leaves(tree))
+
+
+def tree_vector(tree) -> torch.Tensor:
+    """Flatten a tree of tensors into a single 1-D fp32 vector."""
+    return torch.cat([l.reshape(-1).to(torch.float32) for l in tree_leaves(tree)])
+
+
+def tree_unvector(vec: torch.Tensor, like) -> Dict:
+    """Inverse of :func:`tree_vector` given a template tree ``like``.
+
+    ``vec`` may carry leading axes (a node-stacked (N, P) matrix): each
+    leaf then gets them in front of its template shape.  Where the dtype
+    already matches, the leaves are views of ``vec``, so writing to a leaf
+    writes to ``vec``.
+    """
+    lead = tuple(vec.shape[:-1])
+    off = 0
+
+    def cut(l):
+        nonlocal off
+        n = math.prod(l.shape)
+        out = vec[..., off:off + n].reshape(lead + tuple(l.shape)).to(l.dtype)
+        off += n
+        return out
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return cut(t)
+
+    return walk(like)

@@ -5,6 +5,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips (inside the test) where there is none"
+    )
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,111 @@
+"""Port parity: overlay graphs, neighbor tables and Metropolis-Hastings
+weights are bitwise the JAX package's; the link-time formula agrees."""
+import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
+import numpy as np
+import pytest
+import torch
+
+from repro.core import network as jnet
+from repro.core import topology as jtop
+from repro_torch.core import network as tnet
+from repro_torch.core import topology as ttop
+
+
+def _graphs(mod, n=12):
+    return {
+        "ring": mod.Graph.ring(n),
+        "regular": mod.Graph.regular_circulant(n, 5),
+        "random-regular": mod.Graph.random_regular(n, 4, 3),
+        "fully": mod.Graph.fully_connected(n),
+        "star": mod.Graph.star(n),
+    }
+
+
+@pytest.mark.parametrize("kind", ["ring", "regular", "random-regular", "fully", "star"])
+def test_graphs_and_tables_bitwise(kind):
+    a, b = _graphs(jtop)[kind], _graphs(ttop)[kind]
+    np.testing.assert_array_equal(a.adj, b.adj)
+    np.testing.assert_array_equal(a.metropolis_hastings(), b.metropolis_hastings())
+    for x, y in zip(a.neighbor_table(), b.neighbor_table()):
+        np.testing.assert_array_equal(x, y)
+    sa, sb = jtop.SparseTopology.from_graph(a), ttop.SparseTopology.from_graph(b)
+    for f in ("nbr", "w", "w_self"):
+        np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f))
+    np.testing.assert_array_equal(sa.to_dense(), sb.to_dense())
+    assert sa.stage_bytes() == sb.stage_bytes()
+
+
+def test_edge_list_file_bitwise(tmp_path):
+    path = tmp_path / "g.txt"
+    path.write_text("# edges\n0 1\n1 2\n2 3\n3 0\n0 2\n")
+    np.testing.assert_array_equal(
+        jtop.Graph.from_edge_list(str(path), 5).adj,
+        ttop.Graph.from_edge_list(str(path), 5).adj,
+    )
+
+
+@pytest.mark.parametrize("n,d", [(16, 5), (10, 2), (64, 4), (1024, 5)])
+def test_circulant_tables_bitwise(n, d):
+    assert jtop.circulant_offsets(n, d) == ttop.circulant_offsets(n, d)
+    np.testing.assert_array_equal(
+        jtop.circulant_neighbor_table(n, d), ttop.circulant_neighbor_table(n, d)
+    )
+    sa = jtop.SparseTopology.regular_circulant(n, d)
+    sb = ttop.SparseTopology.regular_circulant(n, d)
+    for f in ("nbr", "w", "w_self"):
+        np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f))
+
+
+@pytest.mark.parametrize("n,d,seed", [(20, 3, 0), (64, 5, 11), (6, 5, 2)])
+def test_random_regular_bitwise(n, d, seed):
+    np.testing.assert_array_equal(
+        jtop.random_regular_neighbors(n, d, seed), ttop.random_regular_neighbors(n, d, seed)
+    )
+
+
+def test_mh_weight_table_from_neighbors_bitwise():
+    g = jtop.Graph.star(7)
+    nbr, valid = jtop.neighbor_table(g.adj)
+    for x, y in zip(jtop.mh_weight_table(nbr, valid), ttop.mh_weight_table(nbr, valid)):
+        np.testing.assert_array_equal(x, y)
+    sa = jtop.SparseTopology.from_neighbors(nbr, valid)
+    sb = ttop.SparseTopology.from_neighbors(nbr, valid)
+    np.testing.assert_array_equal(sa.w, sb.w)
+
+
+def test_merge_tables_and_device_copy():
+    st = ttop.SparseTopology.regular_circulant(8, 4).to("cpu")
+    rows, ws = st.merge_tables()
+    assert rows.dtype == torch.int32 and ws.dtype == torch.float32
+    np.testing.assert_array_equal(rows[:, 0].numpy(), np.arange(8))
+    np.testing.assert_array_equal(rows[:, 1:].numpy(), st.nbr.numpy())
+    np.testing.assert_array_equal(ws[:, 0].numpy(), st.w_self.numpy())
+    assert st.merge_tables()[0] is rows  # built once
+
+
+@pytest.mark.parametrize("net", ["paper_testbed", "wan_deployment"])
+@pytest.mark.parametrize("parallel", [False, True])
+def test_network_round_times_match(net, parallel):
+    n = 12
+    a, b = getattr(jnet, net)(n), getattr(tnet, net)(n)
+    for x, y in zip(a.matrices(), b.matrices()):
+        np.testing.assert_array_equal(x, y)
+    ct = jnet.straggler_compute_times(n, 0.5, 4.0, 0.25, seed=3)
+    np.testing.assert_array_equal(ct, tnet.straggler_compute_times(n, 0.5, 4.0, 0.25, seed=3))
+    ga, gb = jtop.Graph.regular_circulant(n, 4), ttop.Graph.regular_circulant(n, 4)
+    ta = a.round_time(ga, 1e6, ct, parallel)
+    tb = b.round_time(gb, 1e6, ct, parallel)
+    assert ta == tb
+    np.testing.assert_array_equal(a.node_times(ga, 1e6, ct, parallel),
+                                  b.node_times(gb, 1e6, ct, parallel))
+    # the tensor form of the shared formula (the engine's, fp32 on device)
+    lat, gp = (torch.as_tensor(m) for m in b.matrices())
+    A = torch.as_tensor(gb.adj.astype(np.float32))
+    tt = tnet.node_round_times(A, lat, gp, torch.tensor(1e6), torch.as_tensor(ct), parallel)
+    np.testing.assert_allclose(tt.numpy(), b.node_times(gb, 1e6, ct, parallel), rtol=1e-6)
+
+
+def test_linkspec_rejects_full_drop():
+    with pytest.raises(ValueError):
+        tnet.LinkSpec(1e9, 1e-3, drop_rate=1.0)
+    assert tnet.LAN.transfer_time(1e6) == jnet.LAN.transfer_time(1e6)
