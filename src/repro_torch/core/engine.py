@@ -9,10 +9,11 @@ sharing strategy — for a sparse overlay, one launch of the fused
 gather-merge kernel (``kernels/gossip_mix.py``).  The dataset lives on
 the device and each round's batches are gathered there by index.
 
-This is the first slice of the port of the JAX package's engine: the
-synchronous scheduler with full sharing, full participation, no faults, on
-one device.  ``DLConfig.validate()`` raises ``NotImplementedError`` for
-every knob outside it.
+The port covers the synchronous scheduler with full sharing and with the
+magnitude-selected compressed sharing (TopK, CHOCO-SGD; payload wire on or
+off, int8 payload codec), full participation, no faults, on one device.
+``DLConfig.validate()`` raises ``NotImplementedError`` for every knob
+outside it.
 
 Device and numerics: the engine runs on the card (``device=None`` means
 ``"cuda"``) and raises if there is none; pass ``device="cpu"`` to run on
@@ -112,6 +113,25 @@ class DLConfig:
         def bad(msg):
             raise ValueError(f"invalid DLConfig: {msg}")
 
+        # sharing-strategy knob compatibility, as the JAX package checks it
+        sparsified = sharing_lib.strategy_takes_budget(self.sharing)
+        if self.secure:
+            if self.payload == "on" or self.payload_quant or self.randk_sampler != "uniform":
+                bad("payload/payload_quant/randk_sampler do not compose with "
+                    "secure=True (masked messages are full fp32 vectors)")
+        else:
+            if self.payload == "on" and not sparsified:
+                bad(f"payload='on' needs a sparsified sharing strategy "
+                    f"(randomk/topk/choco), not {self.sharing!r}")
+            if self.payload_quant and not sparsified:
+                bad("payload_quant applies to payload-emitting strategies "
+                    "(randomk/topk/choco); use sharing='quant' for quantized "
+                    "full sharing")
+            if self.randk_sampler != "uniform" and self.sharing.lower() not in (
+                "randomk", "random"
+            ):
+                bad("randk_sampler applies to sharing='randomk' only")
+
         if self.semantics in ("local", "async"):
             todo(f"semantics={self.semantics!r}")
         if not sharing_lib.is_full_sharing(self.sharing):
@@ -169,15 +189,6 @@ class DLConfig:
         if self.compute_spread > 0 and self.compute_time_s == 0:
             bad("compute_spread scales compute_time_s, which is 0 — set a "
                 "base compute_time_s")
-        if self.payload == "on":
-            bad(f"payload='on' needs a sparsified sharing strategy "
-                f"(randomk/topk/choco), not {self.sharing!r}")
-        if self.payload_quant:
-            bad("payload_quant applies to payload-emitting strategies "
-                "(randomk/topk/choco); use sharing='quant' for quantized "
-                "full sharing")
-        if self.randk_sampler != "uniform":
-            bad("randk_sampler applies to sharing='randomk' only")
         if self.secure_recovery:
             bad("secure_recovery=True is the seed-recovery pass of secure "
                 "aggregation; it needs secure=True")
@@ -215,6 +226,19 @@ def build_graph(cfg: DLConfig) -> Optional[Graph]:
     if t.startswith("file:"):
         return Graph.from_edge_list(t[5:], cfg.n_nodes)
     raise ValueError(f"unknown topology {t!r}")
+
+
+def make_strategy(dl: DLConfig):
+    """The sharing strategy of a config, with the JAX engine's kwargs."""
+    kw = {"gamma": dl.choco_gamma} if dl.sharing.startswith("choco") else {}
+    if sharing_lib.strategy_takes_budget(dl.sharing):
+        kw["budget"] = dl.budget
+        kw["payload"] = dl.payload != "off"
+        if dl.payload_quant:
+            kw["quantize"] = "int8"
+        if dl.sharing.lower() in ("randomk", "random"):
+            kw["sampler"] = dl.randk_sampler
+    return sharing_lib.make_sharing(dl.sharing, **kw)
 
 
 def compute_time_vector(cfg: DLConfig) -> np.ndarray:
@@ -297,7 +321,7 @@ class RoundEngine:
         self.X = self._init_state(init_params_fn, init_params)
         self.opt_state = self.opt.init(self.params)
         self.n_params = int(self.X.shape[1])
-        self.sharing = sharing_lib.make_sharing(dl.sharing)
+        self.sharing = make_strategy(dl)
         self.share_state = self.sharing.init_state(self.X)
         self.wire_dtype = self.sharing.wire_dtype(self.X.dtype)
         self.share_stage_bytes = int(self.sharing.stage_bytes_per_round(n, self.n_params))

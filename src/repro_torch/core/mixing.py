@@ -8,6 +8,12 @@ weights.
   dense (N, N) W it is ``torch.matmul``.
 * :func:`mix_sparse` / :func:`mix_dense` — the same over a node-stacked
   parameter tree.
+* :func:`mix_payload` — the compressed-sharing aggregation from per-node
+  (idx, val) payloads: on a :class:`SparseTopology` one launch of the
+  payload-merge kernel (``kernels/scatter_gossip.py``), which reads each
+  sender's payload row by index, so the (N, D, k) operand stacks of the
+  JAX package's ``_payload_operands`` are never built; on a dense W the
+  dense-mask oracle :func:`mix_payload_masked`.
 
 Summation order: the kernel adds the self slot first and then the
 neighbour slots in order; the JAX ``apply_W`` adds ``w_self * x`` after the
@@ -19,6 +25,7 @@ import torch
 
 from repro_torch.core.topology import SparseTopology
 from repro_torch.kernels.gossip_mix import gossip_mix_rows
+from repro_torch.kernels.scatter_gossip import payload_mix_rows
 from repro_torch.utils.pytree import tree_map
 
 
@@ -48,3 +55,56 @@ def mix_sparse(stacked, topo: SparseTopology):
     """Neighbor-indexed gossip over a tree: x_i' = w_self_i x_i +
     sum_k w[i,k] x_nbr[i,k] per leaf, through the fused merge kernel."""
     return tree_map(lambda a: apply_W(topo, a).to(a.dtype), stacked)
+
+
+# ---------------------------------------------------------------------------
+# payload-indexed aggregation: the compressed-sharing wire primitive
+# ---------------------------------------------------------------------------
+#
+# Sparsified strategies emit per-node payloads, ``idx`` (N, k) int32
+# coordinates and ``val`` (N, k) wire values, and aggregate them with the
+# missing-coordinate rule
+#
+#     x_i'[c] = x_i[c] + sum_j W_ij * m_j[c] * (v_j[c] - x_i[c]).
+#
+# The self slot rides along with weight w_self: it cancels exactly when
+# val == x[idx] and reproduces the dense rule's self round trip when the
+# wire codec perturbs values.
+
+
+def mix_payload(W, idx, val, X, *, exact_values: bool = True):
+    """Payload-indexed sparse aggregation: X' (N, P) fp32 from per-node
+    payloads idx (N, k) int32 and val (N, k).
+
+    W: a ``SparseTopology`` (one payload-merge kernel launch over the
+    cached merge tables) or a dense (N, N) tensor (the dense-mask oracle).
+    exact_values: promise that ``val`` is bit for bit the sender's own
+    coordinates, so the self slot's correction is exactly zero and its
+    slot is dropped; pass False for quantized payloads.
+    """
+    Xf = X.to(torch.float32)
+    valf = val.to(torch.float32)
+    if isinstance(W, SparseTopology):
+        rows, w = W.merge_tables(include_self=not exact_values)
+        return payload_mix_rows(Xf, idx.to(torch.int32), valf, rows, w)
+    return mix_payload_masked(W, idx, valf, Xf)
+
+
+def _scatter_rows(idx, val, shape):
+    """Dense (N, P) scatter of per-row payloads (payload indices are unique
+    per row, so set == add)."""
+    return torch.zeros(shape, dtype=torch.float32, device=val.device).scatter_(
+        1, idx.long(), val.to(torch.float32)
+    )
+
+
+def mix_payload_masked(W, idx, val, X):
+    """Dense-mask oracle of :func:`mix_payload`: scatter the payload into
+    (N, P) value and mask matrices and apply the rule as
+    X' = X + W@(M*V) - X*(W@M), two :func:`apply_W` passes (two launches
+    of the merge kernel on a ``SparseTopology``).  The ``payload="off"``
+    execution mode."""
+    Xf = X.to(torch.float32)
+    MX = _scatter_rows(idx, val, Xf.shape)
+    M = _scatter_rows(idx, torch.ones_like(val, dtype=torch.float32), Xf.shape)
+    return Xf + apply_W(W, MX) - Xf * apply_W(W, M)

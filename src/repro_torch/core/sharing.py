@@ -1,16 +1,94 @@
 """Sharing module: message content and aggregation.
 
 Strategies act on the node-stacked flat parameter matrix X (N, P) and
-return the post-gossip X' with the bytes each node sent this round.  Only
-full sharing (D-PSGD) is ported; the sparsified, quantized and secure
-strategies are not yet.
+return the post-gossip X' with the bytes each node sent this round.
+
+Ported: full sharing (D-PSGD), and the sparsified strategies that select
+coordinates by magnitude, :class:`TopKSharing` and :class:`ChocoSGD` with
+its top-k compressor, optionally with the int8 wire codec.  They emit
+per-node payloads, ``idx`` (N, k) int32 and ``val`` (N, k), aggregated by
+:func:`repro_torch.core.mixing.mix_payload` (one payload-merge kernel
+launch; ``payload=False`` takes the dense-mask oracle).  Random-k,
+quantized full sharing and CHOCO's random-k compressor draw from the
+reference's Threefry keys and raise ``NotImplementedError`` until that
+generator is ported.
+
+Unlike the JAX package's pure functions, ``round`` updates the strategy
+state (``last_shared``, ``xhat``) in place: at N=1024 each is a 2.4 GB
+(N, P) matrix, and a functional update would hold two of them.
 """
 from __future__ import annotations
 
-from repro_torch.core.mixing import apply_W
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.compression import dequantize_int8, quantize_int8
+from repro_torch.core.mixing import apply_W, mix_payload, mix_payload_masked
+from repro_torch.kernels.sparsify import topk_threshold_rows
+
+BYTES_IDX = 4   # int32 index on the wire
 
 _FULL_NAMES = ("full", "fullsharing", "d-psgd")
 _QUANT_NAMES = ("quant", "quantized", "int8")
+_RANDK_NAMES = ("randomk", "random")
+_CHOCO_NAMES = ("choco", "choco-sgd", "chocosgd")
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def _topk_idx(x_abs, k: int, selector: str = "auto"):
+    """(N, k) int32 indices of (approximately) the k largest coordinates
+    per row of the magnitudes ``x_abs`` — the one selection rule of the
+    payload path and the dense-mask oracle.
+
+    selector: 'exact' — the first k of a stable descending sort, which
+    puts the lower index first among equal values as ``lax.top_k`` does
+    (``torch.topk`` promises no order among ties); 'hist' — the histogram
+    threshold (``kernels.sparsify.topk_threshold_rows``, two histogram
+    kernel launches), then the first k survivors in index order; 'auto' —
+    'hist' on a CUDA tensor, 'exact' on the CPU (the reference picks the
+    histogram on its accelerator and the sort elsewhere).
+    """
+    if selector == "auto":
+        selector = "hist" if x_abs.is_cuda else "exact"
+    if selector == "exact":
+        order = torch.sort(x_abs, dim=1, descending=True, stable=True).indices
+        return order[:, :k].to(torch.int32)
+    if selector != "hist":
+        raise ValueError(f"unknown selector {selector!r} (auto|exact|hist)")
+    n = x_abs.shape[0]
+    keep = x_abs >= topk_threshold_rows(x_abs, k)[:, None]
+    # int32 prefix counts: the int64 default would add 8 bytes per element
+    keep &= torch.cumsum(keep, 1, dtype=torch.int32) <= k
+    rows, cols = keep.nonzero(as_tuple=True)   # row-major: index order per row
+    counts = keep.sum(1)
+    slot = torch.arange(rows.numel(), device=x_abs.device) - (counts.cumsum(0) - counts)[rows]
+    out = torch.zeros((n, k), dtype=torch.int32, device=x_abs.device)
+    out[rows, slot] = cols.to(torch.int32)
+    return out
+
+
+def _wire(val, quantize: Optional[str], x_dtype):
+    """Wire-form payload values: (valf, the fp32 values the receivers
+    reconstruct; bytes per value on the wire; per-node header bytes)."""
+    if quantize in (None, "none"):
+        item = torch.empty((), dtype=x_dtype).element_size()
+        return val.to(x_dtype).to(torch.float32), item, 0
+    if quantize == "int8":
+        codes, scale = quantize_int8(val.to(torch.float32))
+        return dequantize_int8(codes, scale), 1, 4
+    raise ValueError(f"unknown payload quantization {quantize!r} (int8|none)")
+
+
+def sparse_aggregate(X, W, M):
+    """Masked gossip with missing-coordinate fallback through two
+    :func:`apply_W` passes: X + W@(M*X) - X*(W@M)."""
+    Xf, Mf = X.to(torch.float32), M.to(torch.float32)
+    return (Xf + apply_W(W, Mf * Xf) - Xf * apply_W(W, Mf)).to(X.dtype)
 
 
 class FullSharing:
@@ -24,10 +102,117 @@ class FullSharing:
         return X2, state, degree * X.shape[1] * X.element_size()
 
     def wire_dtype(self, x_dtype) -> str:
-        return str(x_dtype).replace("torch.", "")
+        return _dtype_name(x_dtype)
 
     def stage_bytes_per_round(self, n: int, p: int) -> int:
         return n * p * 4  # the fp32 mixing operand itself
+
+
+@dataclasses.dataclass(frozen=True)
+class _PayloadSharing:
+    """Shared machinery of the payload-emitting sparsified strategies.
+
+    payload: aggregate through :func:`mix_payload` (True) or the dense-mask
+    oracle (False).  quantize: None or 'int8' (the wire codec of
+    ``core/compression.py``, 1 byte per value and a 4-byte scale per
+    node).  selector: the top-k rule (see :func:`_topk_idx`).
+    """
+
+    budget: float  # fraction of parameters shared (paper: 0.10)
+    payload: bool = True
+    quantize: Optional[str] = None  # None | 'int8'
+    selector: str = "auto"          # auto | exact | hist
+
+    def _k(self, X) -> int:
+        return max(1, int(self.budget * X.shape[1]))
+
+    def _aggregate(self, X, W, idx, valf):
+        if self.payload:
+            return mix_payload(W, idx, valf, X, exact_values=self.quantize is None).to(X.dtype)
+        return mix_payload_masked(W, idx, valf, X).to(X.dtype)
+
+    def _nbytes(self, degree, k: int, item: int, header: int):
+        return degree * (k * (BYTES_IDX + item) + header)
+
+    def wire_dtype(self, x_dtype) -> str:
+        return "int8" if self.quantize == "int8" else _dtype_name(x_dtype)
+
+    def _payload_stage_bytes(self, n: int, p: int) -> int:
+        """Bytes of the (idx, val) payloads of one round, and the scales."""
+        k = max(1, int(self.budget * p))
+        item = 1 if self.quantize == "int8" else 4
+        header = 4 if self.quantize == "int8" else 0
+        return n * (k * (BYTES_IDX + item) + header)
+
+    def stage_bytes_per_round(self, n: int, p: int) -> int:
+        """Bytes of message tensors the sharing stage materializes per
+        round: (idx, val) payloads, vs scattered (N, P) fp32 value and
+        byte mask matrices on the dense-mask oracle path."""
+        return self._payload_stage_bytes(n, p) if self.payload else n * p * (4 + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class TopKSharing(_PayloadSharing):
+    """TopK sparsification [Alistarh et al. '18]: share the k coordinates
+    whose accumulated change since they were last shared is largest; the
+    residual stays in ``last_shared``, the Model module's extra state."""
+
+    def init_state(self, X):
+        return {"last_shared": X.to(torch.float32).clone()}
+
+    def round(self, X, W, state, key=None, degree=1.0, rnd=0):
+        k = self._k(X)
+        last = state["last_shared"]
+        idx = _topk_idx((X.to(torch.float32) - last).abs_(), k, self.selector)
+        val = X.gather(1, idx.long())
+        valf, item, header = _wire(val, self.quantize, X.dtype)
+        X2 = self._aggregate(X, W, idx, valf)
+        # error feedback: record what the receivers reconstructed, so a
+        # quantization residual stays in the delta and is shared again
+        last.scatter_(1, idx.long(), valf)
+        return X2, state, self._nbytes(degree, k, item, header)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChocoSGD(_PayloadSharing):
+    """CHOCO-SGD [Koloskova et al. '19]: gossip on compressed differences
+    to a public copy x̂, with consensus step size gamma.
+
+        q_i  = C(x_i - x̂_i)           (top-k compressor)
+        x̂_i += q_i
+        x_i += gamma * sum_j W_ij (x̂_j - x̂_i)
+
+    The wire carries the (idx, val) payload of q; the consensus step mixes
+    the locally tracked dense x̂ copies through :func:`apply_W`.
+    """
+
+    gamma: float = 0.3
+    compressor: str = "topk"  # 'topk' | 'randk'
+
+    def __post_init__(self):
+        if self.compressor != "topk":  # the reference takes any other as randk
+            raise NotImplementedError(
+                f"ChocoSGD(compressor={self.compressor!r}) is not ported yet"
+            )
+
+    def init_state(self, X):
+        return {"xhat": torch.zeros(X.shape, dtype=torch.float32, device=X.device)}
+
+    def stage_bytes_per_round(self, n: int, p: int) -> int:
+        # the q payload in both modes; the dense x̂ mix is local state
+        return self._payload_stage_bytes(n, p)
+
+    def round(self, X, W, state, key=None, degree=1.0, rnd=0):
+        k = self._k(X)
+        xhat = state["xhat"]
+        Xf = X.to(torch.float32)
+        diff = Xf - xhat
+        idx = _topk_idx(diff.abs(), k, self.selector).long()
+        valf, item, header = _wire(diff.gather(1, idx), self.quantize, torch.float32)
+        del diff
+        xhat.scatter_add_(1, idx, valf)
+        X2 = Xf + self.gamma * (apply_W(W, xhat) - xhat)
+        return X2.to(X.dtype), state, self._nbytes(degree, k, item, header)
 
 
 def strategy_takes_budget(name: str) -> bool:
@@ -40,17 +225,32 @@ def is_full_sharing(name: str) -> bool:
     return name.lower() in _FULL_NAMES
 
 
-def make_sharing(name: str, budget=None, **kw):
-    """Build a sharing strategy by name (only full sharing is ported)."""
+def make_sharing(name: str, budget: Optional[float] = None, **kw):
+    """Build a sharing strategy by name.  Every keyword goes to the
+    strategy's constructor; unknown or inapplicable ones raise
+    ``ValueError``.  ``budget`` defaults to 0.1 for the sparsified
+    strategies and is rejected for full sharing."""
     name_l = name.lower()
-    if name_l in _FULL_NAMES:
-        if budget is not None or kw:
+
+    def build(cls, **kwargs):
+        try:
+            return cls(**kwargs)
+        except TypeError as e:
+            raise ValueError(f"invalid kwargs for sharing strategy {name!r}: {e}") from None
+
+    if name_l in _FULL_NAMES + _QUANT_NAMES:
+        if budget is not None:
             raise ValueError(
-                f"sharing strategy {name!r} shares every coordinate; "
-                f"'budget' and {sorted(kw)} do not apply"
+                f"sharing strategy {name!r} shares every coordinate; 'budget' does not apply"
             )
-        return FullSharing()
-    if name_l in _QUANT_NAMES or name_l in ("randomk", "random", "topk", "choco",
-                                             "choco-sgd", "chocosgd"):
+        if name_l in _QUANT_NAMES:
+            raise NotImplementedError(f"sharing strategy {name!r} is not ported yet")
+        return build(FullSharing, **kw)
+    b = 0.1 if budget is None else budget
+    if name_l in _RANDK_NAMES:
         raise NotImplementedError(f"sharing strategy {name!r} is not ported yet")
+    if name_l == "topk":
+        return build(TopKSharing, budget=b, **kw)
+    if name_l in _CHOCO_NAMES:
+        return build(ChocoSGD, budget=b, **kw)
     raise ValueError(f"unknown sharing strategy {name!r}")

@@ -4,7 +4,8 @@
 sharing strategy, per-node compute times, link matrices) and no mutable
 state.  The caller threads the flat (N, P) parameter matrix X through
 :meth:`RoundSteps.train_and_mix`.  Only full participation without fault
-injection is ported.
+injection is ported; no ported strategy draws random numbers, so the
+share step passes ``key=None``.
 """
 from __future__ import annotations
 
@@ -82,7 +83,7 @@ class RoundSteps:
         _, opt_state = self.local_train(params, opt_state, bx, by)
         deg = self.mean_degree
         X2, share_state, nbytes = self.sharing.round(
-            X, W, share_state, degree=deg, rnd=rnd
+            X, W, share_state, key=None, degree=deg, rnd=rnd
         )
         nbytes = float(np.float32(nbytes))
         if self.lat is not None:

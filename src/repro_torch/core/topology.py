@@ -10,7 +10,7 @@ JAX package's ``core/topology.py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -218,8 +218,8 @@ class SparseTopology:
     nbr: object     # (N, D) int32
     w: object       # (N, D) float32
     w_self: object  # (N,) float32
-    _merge: Optional[Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
-        default=None, init=False, repr=False
+    _merge: Dict[bool, Tuple[torch.Tensor, torch.Tensor]] = dataclasses.field(
+        default_factory=dict, init=False, repr=False
     )
 
     @property
@@ -242,18 +242,23 @@ class SparseTopology:
             torch.as_tensor(np.asarray(self.w_self), dtype=torch.float32, device=device),
         )
 
-    def merge_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def merge_tables(self, include_self: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
         """(rows (N, 1+D) int32, weights (N, 1+D) fp32): the self slot
-        first, then the neighbor slots — the operands of the fused merge
-        kernel.  Built once per topology and cached."""
-        if self._merge is None:
+        first, then the neighbor slots — the operands of the merge
+        kernels.  ``include_self=False`` drops the self slot: (N, D)
+        contiguous tables.  Each form is built once per topology and
+        cached."""
+        if include_self not in self._merge:
             from repro_torch.kernels.gossip_mix import merge_tables
 
-            self._merge = merge_tables(
+            rows, w = merge_tables(
                 torch.as_tensor(self.nbr), torch.as_tensor(self.w),
                 torch.as_tensor(self.w_self),
             )
-        return self._merge
+            if not include_self:
+                rows, w = rows[:, 1:].contiguous(), w[:, 1:].contiguous()
+            self._merge[include_self] = (rows, w)
+        return self._merge[include_self]
 
     @staticmethod
     def from_graph(g: Graph) -> "SparseTopology":

@@ -1,13 +1,26 @@
-"""Port parity for the slice as a whole: the port's RoundEngine against the
-JAX package's RoundEngine on the quickstart configuration (sync, full
-sharing, 5-regular overlay, GN-LeNet, plain SGD, LAN network), both
-started from the same JAX-initialised parameters.
+"""Port parity for the slices as a whole: the port's RoundEngine against
+the JAX package's RoundEngine on the quickstart configuration (sync, full
+sharing, 5-regular overlay, GN-LeNet, plain SGD, LAN network), and on the
+same configuration with compressed sharing (TopK with fp32 and int8
+payloads, CHOCO-SGD), both started from the same JAX-initialised
+parameters.  Both engines resolve the top-k selector 'auto' to the exact
+sort on the CPU.
 
 Tolerances: parameters after every eval within atol 1e-4 (fp32 with other
 summation orders, compounded over the rounds); ``acc_mean`` within 2/64;
 ``bytes_sent`` equal; ``sim_time_s`` within rtol 1e-6.
+
+The int8 payload wire is discontinuous: a value whose x/scale lies within
+an fp32 rounding of a half-integer takes the next code when local training
+moved it by that rounding, and the reconstructed value then moves by a
+whole scale step.  Its trajectory is compared round by round instead: the
+port's share step is fed the JAX engine's post-training X and strategy
+state of every round and must give its post-mix X and state within atol
+1e-6, as one ``round`` does in ``test_torch_sharing.py``.
 """
+import dataclasses
 import json
+from typing import Any
 
 import jax
 import numpy as np
@@ -16,6 +29,7 @@ import torch
 
 from repro.core import DLConfig as JDLConfig
 from repro.core import RoundEngine as JRoundEngine
+from repro.core import sharing as jsharing
 from repro.data import NodeBatcher as JNodeBatcher
 from repro.data import make_dataset, sharding_partition
 from repro.models.api import cross_entropy as jce
@@ -25,6 +39,8 @@ from repro.optim import make_optimizer as jmake_optimizer
 from repro.utils.pytree import tree_vector as jtree_vector
 from repro_torch import DLConfig, RoundEngine
 from repro_torch.convert import params_from_jax
+from repro_torch.core import topology as ttop
+from repro_torch.core.engine import make_strategy
 from repro_torch.data import NodeBatcher
 from repro_torch.models.cnn import cnn_init
 from repro_torch.optim import make_optimizer
@@ -41,18 +57,37 @@ def _data():
     return ds, sharding_partition(ds.train_y, N, 2, seed=0)
 
 
-@pytest.fixture(scope="module")
-def jax_run(tmp_path_factory):
+@dataclasses.dataclass(frozen=True)
+class _Recording:
+    """A JAX strategy that also hands each round's share-step inputs and
+    outputs (X, state, X', state', bytes) to ``log``, in round order."""
+
+    inner: Any
+    log: list = dataclasses.field(hash=False, compare=False)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def round(self, X, W, state, key, degree, rnd=0):
+        out = self.inner.round(X, W, state, key, degree, rnd)
+        jax.debug.callback(lambda *a: self.log.append(jax.tree_util.tree_map(np.asarray, a)),
+                           X, state, *out, ordered=True)
+        return out
+
+
+def _jax_run(out, **over):
     """One JAX engine run (about 20 s here): its initial params, the flat
-    params at each eval, and its totals."""
+    params at each eval, its totals, and each round's share step."""
     ds, parts = _data()
-    out = tmp_path_factory.mktemp("jax_results")
-    eng = JRoundEngine(
-        JDLConfig(**CFG, results_dir=str(out)), lambda k: jcnn_init(k, width=WIDTH),
-        lambda p, x, y: jce(jcnn_apply(p, x), y),
-        lambda p, x, y: (jcnn_apply(p, x).argmax(-1) == y).mean(),
-        jmake_optimizer("sgd", 0.05), JNodeBatcher(ds.train_x, ds.train_y, parts, BATCH, seed=0),
-    )
+    steps, make = [], jsharing.make_sharing
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jsharing, "make_sharing", lambda *a, **kw: _Recording(make(*a, **kw), steps))
+        eng = JRoundEngine(
+            JDLConfig(**{**CFG, **over}, results_dir=str(out)), lambda k: jcnn_init(k, width=WIDTH),
+            lambda p, x, y: jce(jcnn_apply(p, x), y),
+            lambda p, x, y: (jcnn_apply(p, x).argmax(-1) == y).mean(),
+            jmake_optimizer("sgd", 0.05), JNodeBatcher(ds.train_x, ds.train_y, parts, BATCH, seed=0),
+        )
     init = jax.tree_util.tree_map(np.asarray, eng.params)
     snaps, record = [], eng._record
 
@@ -62,12 +97,32 @@ def jax_run(tmp_path_factory):
 
     eng._record = snap_record
     eng.run(log=False)
+    jax.effects_barrier()
     with open(out / "results.json") as f:
         results = json.load(f)
     return {"init": init, "snaps": snaps, "history": eng.history, "results": results,
+            "steps": steps,
             "bytes_sent": eng.bytes_sent, "sim_time_s": eng.sim_time_s,
             "n_params": eng.n_params, "share_stage_bytes": eng.share_stage_bytes,
             "wire_dtype": eng.wire_dtype, "mix_mode": eng.mix_mode}
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    return _jax_run(tmp_path_factory.mktemp("jax_results"))
+
+
+SPARSE = {
+    "topk-fp32": dict(sharing="topk"),
+    "topk-int8": dict(sharing="topk", payload_quant=True),
+    "choco": dict(sharing="choco"),
+}
+
+
+@pytest.fixture(scope="module", params=sorted(SPARSE))
+def jax_sparse_run(request, tmp_path_factory):
+    over = SPARSE[request.param]
+    return over, _jax_run(tmp_path_factory.mktemp("jax_sparse"), **over)
 
 
 def _torch_run(init, results_dir=None, **over):
@@ -121,6 +176,45 @@ def test_trajectory_bitwise_across_chunk_rounds(jax_run, chunk):
     assert eng.bytes_sent == ref.bytes_sent and eng.sim_time_s == ref.sim_time_s
 
 
+# the int8 wire is compared round by round (module docstring)
+@pytest.mark.parametrize("jax_sparse_run", ["choco", "topk-fp32"], indirect=True)
+def test_sparse_params_track_jax_at_every_eval(jax_sparse_run):
+    over, want = jax_sparse_run
+    eng, snaps = _torch_run(want["init"], **over)
+    assert len(snaps) == len(want["snaps"]) == 3
+    for got, ref in zip(snaps, want["snaps"]):
+        np.testing.assert_allclose(got, ref, atol=1e-4, rtol=0)
+    for h, jh in zip(eng.history, want["history"]):
+        assert abs(h["acc_mean"] - jh["acc_mean"]) <= 2 / 64
+
+
+def test_sparse_bytes_and_wire_metrics_match_jax(jax_sparse_run):
+    over, want = jax_sparse_run
+    eng, _ = _torch_run(want["init"], **over)
+    assert eng.bytes_sent == want["bytes_sent"] > 0
+    assert eng.sim_time_s == pytest.approx(want["sim_time_s"], rel=1e-6)
+    for k in ("n_params", "share_stage_bytes", "wire_dtype", "mix_mode"):
+        assert getattr(eng, k) == want[k], k
+    for h, jh in zip(eng.history, want["history"]):
+        assert h["bytes_per_node"] == jh["bytes_per_node"]
+        assert h["wire_dtype"] == jh["wire_dtype"]
+
+
+def test_sparse_share_step_matches_jax_round_by_round(jax_sparse_run):
+    over, want = jax_sparse_run
+    dl = DLConfig(**{**CFG, **over})
+    sharing = make_strategy(dl)
+    topo = ttop.SparseTopology.regular_circulant(N, 5).to("cpu")
+    assert len(want["steps"]) == CFG["rounds"]
+    for X, state, jX2, jstate, jbytes in want["steps"]:
+        state = {k: torch.tensor(v) for k, v in state.items()}
+        X2, state, nbytes = sharing.round(torch.tensor(X), topo, state, key=None, degree=5.0)
+        np.testing.assert_allclose(X2.numpy(), jX2, atol=1e-6, rtol=0)
+        for k, v in jstate.items():
+            np.testing.assert_allclose(state[k].numpy(), v, atol=1e-6, rtol=0)
+        assert float(np.float32(nbytes)) == float(jbytes)
+
+
 def test_results_json_has_the_jax_schema(jax_run, tmp_path):
     _torch_run(jax_run["init"], results_dir=str(tmp_path))
     with open(tmp_path / "results.json") as f:
@@ -155,7 +249,7 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("knob", [
     dict(semantics="local"), dict(semantics="async"), dict(sharing="randomk"),
-    dict(sharing="topk"), dict(sharing="choco"), dict(sharing="quant"),
+    dict(sharing="randomk", randk_sampler="strided"), dict(sharing="int8"), dict(sharing="quant"),
     dict(secure=True), dict(participation=0.5), dict(churn_machines=2),
     dict(faults=object()), dict(shard_devices=2), dict(cohort_capacity=4),
     dict(backend="processes"), dict(topology="dynamic"), dict(batch_keying="node"),
@@ -170,6 +264,9 @@ def test_validate_raises_not_implemented(knob):
     dict(payload_quant=True), dict(randk_sampler="strided"), dict(secure_recovery=True),
     dict(participation=1.5), dict(straggler_frac=0.5, straggler_factor=3.0),
     dict(compute_spread=0.5), dict(selection="hier"), dict(cold_dtype="int8"),
+    dict(sharing="topk", payload="banana"), dict(sharing="choco", randk_sampler="strided"),
+    dict(secure=True, payload="on"), dict(secure=True, payload_quant=True),
+    dict(secure=True, sharing="randomk", randk_sampler="strided"),
 ])
 def test_validate_applies_the_jax_rules(knob):
     with pytest.raises(ValueError):

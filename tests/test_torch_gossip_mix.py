@@ -122,7 +122,7 @@ def test_full_sharing_round_matches_jax():
         assert tshare.strategy_takes_budget(name) == jshare.strategy_takes_budget(name)
         assert tshare.is_full_sharing(name) == jshare.is_full_sharing(name)
     with pytest.raises(NotImplementedError):
-        tshare.make_sharing("topk")
+        tshare.make_sharing("randomk")
     with pytest.raises(ValueError):
         tshare.make_sharing("nope")
 
