@@ -18,15 +18,24 @@ Phases (any failure raises and the exit code is non-zero):
 5. topk path: the same engine with TopK sharing at a 10% budget and int8
    payloads, 8 rounds, launch counts read around that run alone, then one
    profiled round and the share step timed alone;
-6. reference: the full-sharing engine on a small input, on the card and on
-   the CPU from the same parameters, must agree; for TopK (int8) and
-   CHOCO-SGD with the histogram selector, every share step of the card's
-   run, replayed on the CPU from the same inputs, must agree.
+6. secure kernels: the keyed and staged secure-mask kernels and the
+   threshold mask against their twins at the secure path's shapes and
+   ragged ones;
+7. entry points: ``topk_mask_approx``, ``secure_mask_apply_nodes`` and
+   ``secure_mask_apply``, each kernel's launches read around that run;
+8. secure path: the same engine with secure aggregation under churn
+   (participation 0.9) with the seed-recovery pass, 8 rounds, launch counts
+   (two keyed mask launches and one gather merge per round) and bytes asserted, then one profiled round and the share step alone;
+9. reference: the full-sharing and the secure engines on a small input, on
+   the card and on the CPU from the same parameters, must agree; for TopK
+   (int8) and CHOCO-SGD with the histogram selector, every share step of
+   the card's run, replayed on the CPU from the same inputs, must agree.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -40,9 +49,21 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+INT32_LANES_PER_SM = 64    # INT32 operations per SM and clock (Hopper white paper)
+# integer-ALU instructions per Threefry-2x32 call of the keyed secure-mask
+# kernel (csrc/secure_mask.cu): 20 funnel-shift rotates, 20 xors and the
+# >> 8 of its two outputs, as `cuobjdump -sass` of the sm_90a build shows
+# its cipher loop (20 SHF.L.W, 20 LOP3 xors, 2 SHF.R; PERF.md records them).
+# Its 26 adds are left out: Hopper issues an add as IMAD.IADD on the FMA
+# pipe too (17 of them there), so only these 42 bound the time from below
+THREEFRY_INT_OPS = 20 + 20 + 2
 MAIN_N, MAIN_DEG, MAIN_P = 1024, 5, 579_594  # GN-LeNet width 32
 MAIN_K = int(0.1 * MAIN_P)  # the TopK payload at a 10% budget: 57,959
-LIBS = ("gossip_mix", "scatter_gossip", "sparsify", "quantize")
+LIBS = ("gossip_mix", "scatter_gossip", "sparsify", "quantize", "secure_mask")
+SECURE_CFG = dict(secure=True, participation=0.9, secure_recovery=True)
+CMP_ELEMS = 1 << 28  # elements per step of a kernel-twin comparison
+NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
+              "masks; the plain twin composes some 180 integer ops per pass")
 
 
 def time_ms(fn, iters=10, warmup=2):
@@ -74,11 +95,12 @@ def bound_ms(nbytes, ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check(label, kernel, twin, library, bound, tol=None, library_covers=None):
+def check(label, kernel, twin, library, bound, tol=None, library_covers=None, plain_iters=3):
     """Run the kernel and its twin once on the same inputs and hold every
     output together: bitwise when ``tol`` is None, else
-    |k - t| <= tol + tol * |t| everywhere.  Time the kernel, the twin and
-    the one-call library yardstick (``library_covers`` says what it
+    |k - t| <= tol + tol * |t| everywhere.  Time the kernel, the twin
+    (``plain_iters`` calls after one warm-up, or one call without) and the
+    one-call library yardstick (``library_covers`` says what it
     computes)."""
     import torch
 
@@ -89,19 +111,22 @@ def check(label, kernel, twin, library, bound, tol=None, library_covers=None):
     for a, b in zip(got, want):
         if tol is None:
             ok = ok and torch.equal(a, b)
-        a, b = a.float(), b.float()
-        err = (a - b).abs()
-        max_abs = max(max_abs, float(err.max()) if err.numel() else 0.0)
-        scale = max(scale, float(b.abs().max()) if b.numel() else 0.0)
-        if tol is not None:
-            ok = ok and bool((err <= tol + tol * b.abs()).all())
-        del a, b, err
+        a, b = a.reshape(-1), b.reshape(-1)
+        for i in range(0, a.numel(), CMP_ELEMS):  # bounded temporaries
+            x, y = a[i:i + CMP_ELEMS].float(), b[i:i + CMP_ELEMS].float()
+            err = (x - y).abs()
+            max_abs = max(max_abs, float(err.max()))
+            scale = max(scale, float(y.abs().max()))
+            if tol is not None:
+                ok = ok and bool((err <= tol + tol * y.abs()).all())
+            del x, y, err
     del got, want
     rec = {"max_abs_err": max_abs}
     if tol is not None:
         rec["max_rel_err"] = max_abs / scale  # against the output's scale
     rec.update({
-        "ms": time_ms(kernel), "plain_ms": time_ms(twin, iters=3, warmup=1),
+        "ms": time_ms(kernel),
+        "plain_ms": time_ms(twin, iters=plain_iters, warmup=1 if plain_iters > 1 else 0),
         "library_ms": time_ms(library) if library is not None else None,
         "bound_ms": bound[0], "bound_by": bound[1],
     })
@@ -358,6 +383,220 @@ def phase_compressed_kernels():
     return out
 
 
+def int32_rate():
+    """(INT32 operations per second, SMs, max SM clock in MHz): 64 lanes per
+    SM and clock at the SM count and the maximum SM clock the card reports."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.split()[0])
+    return INT32_LANES_PER_SM * sms * mhz * 1e6, sms, mhz
+
+
+def keyed_bound(b, m, calls, int_rate):
+    """x's rows read and out written once (bytes) against the integer-ALU
+    instructions of this run's cipher calls, one call per lane and nonzero
+    slot; the larger of the two."""
+    t_bytes = 2 * b * m * 4 / HBM_BYTES_PER_S
+    t_ops = calls * THREEFRY_INT_OPS / int_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def staged_bound(m, signs):
+    """x read and out written once, and the bits of the nonzero slots
+    (the kernel never reads a zero slot's bits); a shift, a conversion,
+    three multiplies and two adds per bit word it reads."""
+    b, nnz = signs.shape[0], int((signs != 0).sum())
+    return bound_ms(b * m * 8 + nnz * m * 4, 7 * nnz * m)
+
+
+def mask_bound(m):
+    """x read, the values and the byte mask written; an abs, a compare and
+    a select per element."""
+    return bound_ms(m * 9, 3 * m)
+
+
+def random_words(shape, gen, dtype):
+    import torch
+
+    lo, hi = (0, 1 << 32) if dtype == torch.int64 else (-(1 << 31), 1 << 31)
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=dtype)
+
+
+def phase_secure_kernels(int_rate):
+    """The secure-mask kernels and the threshold mask against their twins:
+    the keyed kernel on every message of a secure round at N=1024 (B=5120,
+    K=5, M=579,594: the engine's rows, keys and signs), the staged one at
+    B=1024 (the (5120, 5, M) bit stack would not fit), the threshold mask at
+    M=P and at N·P flattened, and ragged shapes of each."""
+    import torch
+    from repro_torch import prng
+    from repro_torch.core.secure import SecureAggregation
+    from repro_torch.core.topology import Graph
+    from repro_torch.kernels import secure_mask as sm
+    from repro_torch.kernels import sparsify as sp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n, p, d = MAIN_N, MAIN_P, MAIN_DEG
+    out = {}
+    s = SecureAggregation(Graph.regular_circulant(n, d).adj)
+    rows, keys, signs = s.message_tables(prng.fold_in(prng.key(17), 3), 3, dev)
+    X = torch.randn((n, p), generator=gen, device=dev)
+    b = rows.numel()
+    calls = int((signs != 0).sum()) * ((p + 1) // 2)
+    print(f"[kernel] keyed secure mask: {calls} cipher calls, {THREEFRY_INT_OPS} integer-ALU "
+          f"instructions each, at {int_rate:.6g} INT32 ops/s", flush=True)
+    out["secure_mask_apply_rows_keyed"] = check(
+        f"secure_mask_apply_rows_keyed B={b} K={d} M={p}",
+        lambda: sm.secure_mask_apply_rows_keyed(X, rows, keys, signs),
+        lambda: sm.secure_mask_apply_rows_keyed_ref(X, rows, keys, signs),
+        None, keyed_bound(b, p, calls, int_rate), tol=1e-6, plain_iters=1,
+        library_covers=NO_LIBRARY,
+    )
+    del X
+    torch.cuda.empty_cache()
+    # the masks themselves, bitwise: x = 0, one key, sign +1, odd and even M
+    for bb, m in ((37, 1003), (5, 1), (3, 4096)):
+        kk = random_words((bb, 1, 2), gen, torch.int64)
+        z, one = torch.zeros((bb, m), device=dev), torch.ones((bb, 1), device=dev)
+        check(f"secure mask bits B={bb} M={m}",
+              lambda: sm.secure_mask_apply_rows_keyed(z, None, kk, one, 0.7),
+              lambda: sm.mask_bits_to_uniform(
+                  prng.counter_bits(kk[:, 0, 0:1], kk[:, 0, 1:2], m), 0.7),
+              None, keyed_bound(bb, m, bb * ((m + 1) // 2), int_rate))
+    # ragged: rows by index, zero signs, 37 messages
+    xr = torch.randn((9, 1003), generator=gen, device=dev)
+    rr = torch.randint(0, 9, (37,), generator=gen, device=dev, dtype=torch.int32)
+    kr = random_words((37, 6, 2), gen, torch.int64)
+    sr = torch.randint(-1, 2, (37, 6), generator=gen, device=dev).float()
+    check("secure_mask_apply_rows_keyed B=37 K=6 M=1003",
+          lambda: sm.secure_mask_apply_rows_keyed(xr, rr, kr, sr),
+          lambda: sm.secure_mask_apply_rows_keyed_ref(xr, rr, kr, sr), None,
+          keyed_bound(37, 1003, int((sr != 0).sum()) * 502, int_rate), tol=1e-6)
+
+    xs = torch.randn((n, p), generator=gen, device=dev)
+    bits = random_words((n, d, p), gen, torch.int32)
+    ss = signs[:n].contiguous()
+    out["secure_mask_apply_rows"] = check(
+        f"secure_mask_apply_rows B={n} K={d} M={p}",
+        lambda: sm.secure_mask_apply_rows(xs, None, bits, ss),
+        lambda: sm.secure_mask_apply_rows_ref(xs, None, bits, ss),
+        None, staged_bound(p, ss), tol=1e-6,
+        library_covers="none: no PyTorch call maps uint32 bits to signed masks and sums them",
+    )
+    # the flat (M,) form: one message's K=5 slots
+    x1, b1, s1 = xs[0].clone(), bits[0].clone(), ss[0].clone()
+    del xs, bits
+    torch.cuda.empty_cache()
+    check(f"secure_mask_apply K={d} M={p}", lambda: sm.secure_mask_apply(x1, b1, s1),
+          lambda: sm.secure_mask_apply_rows_ref(x1[None], None, b1[None], s1[None])[0],
+          None, staged_bound(p, s1[None]), tol=1e-6)
+    br = random_words((37, 6, 1003), gen, torch.int32)
+    check("secure_mask_apply_rows B=37 K=6 M=1003",
+          lambda: sm.secure_mask_apply_rows(xr, rr, br, sr),
+          lambda: sm.secure_mask_apply_rows_ref(xr, rr, br, sr), None,
+          staged_bound(1003, sr), tol=1e-6)
+
+    # the threshold mask, at the histogram selection's own thresholds
+    x1 = torch.randn(p, generator=gen, device=dev)
+    t1 = sp.topk_threshold(x1, MAIN_K)
+    out["threshold_mask"] = check(
+        f"threshold_mask M={p}", lambda: sp.threshold_mask(x1, t1),
+        lambda: sp.threshold_mask_ref(x1, t1), None, mask_bound(p),
+        library_covers="none: no one PyTorch call returns both the kept values and the mask")
+    xf = torch.randn(n * p, generator=gen, device=dev)
+    tf = sp.topk_threshold(xf, n * MAIN_K)
+    check(f"threshold_mask M={n * p}", lambda: sp.threshold_mask(xf, tf),
+          lambda: sp.threshold_mask_ref(xf, tf), None, mask_bound(n * p))
+    xo = torch.randn(1003, generator=gen, device=dev)
+    xo[17] = float("nan")
+    check("threshold_mask M=1003 with a NaN", lambda: sp.threshold_mask(xo, 0.5),
+          lambda: sp.threshold_mask_ref(xo, 0.5), None, mask_bound(1003))
+    del xf
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_entry_points():
+    """The reference's stand-alone entry points as a user calls them, with
+    the launch counts read around these calls alone: ``topk_mask_approx``
+    on one node's P parameters (two histogram launches, one mask launch),
+    the stacked staged form on 64 messages and its flat form (one staged
+    launch each) and the stacked keyed form (one keyed launch)."""
+    import torch
+    from repro_torch.kernels import secure_mask as sm
+    from repro_torch.kernels import sparsify as sp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p, d = MAIN_P, MAIN_DEG
+    x = torch.randn(p, generator=gen, device=dev)
+    xs = torch.randn((64, p), generator=gen, device=dev)
+    bits = random_words((64, d, p), gen, torch.int32)
+    keys = random_words((64, d, 2), gen, torch.int64)
+    signs = torch.randint(-1, 2, (64, d), generator=gen, device=dev).float()
+    torch.cuda.synchronize()
+    reset_launches()
+    vals, mask, t = sp.topk_mask_approx(x, MAIN_K)
+    y = sm.secure_mask_apply_nodes(xs, bits, signs)
+    y1 = sm.secure_mask_apply(xs[0], bits[0], signs[0])
+    yk = sm.secure_mask_apply_nodes_keyed(xs, keys, signs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    print(f"[entry] launches={launches}; kept {int(mask.sum())} of {p} at t={float(t)}",
+          flush=True)
+    want = {**{k: 0 for k in launches}, "abs_histogram_rows": 2, "threshold_mask": 1,
+            "secure_mask_apply_rows": 2, "secure_mask_apply_rows_keyed": 1}
+    if launches != want:
+        raise AssertionError(f"entry-point launches {launches}, want {want}")
+    if not (int(mask.sum()) >= MAIN_K and torch.equal(vals, torch.where(mask, x, 0.0))):
+        raise AssertionError("topk_mask_approx kept too few or wrong values")
+    if not (torch.equal(y1, y[0]) and bool(torch.isfinite(y).all() and torch.isfinite(yk).all())):
+        raise AssertionError("secure mask entry points disagree or are not finite")
+    return launches
+
+
+def phase_secure_path():
+    """Secure aggregation with the seed-recovery pass under churn
+    (participation 0.9) on the main path's configuration: per round two
+    keyed launches (the N·D masked messages, then the dropped pairs' masks
+    subtracted in place), one gather-merge launch (each receiver's live
+    messages summed) and no other kernel; bytes as the host formula gives
+    them, recovery bytes included."""
+    import numpy as np
+    from repro_torch.core.topology import circulant_neighbor_table
+
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+                           **SECURE_CFG)
+    print(f"[secure] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
+          f"wire={eng.wire_dtype} share_stage_bytes={eng.share_stage_bytes}", flush=True)
+    rounds = eng.dl.rounds
+    hist, launches = drive_path("secure", eng, {"secure_mask_apply_rows_keyed": 2 * rounds,
+                                                "gossip_mix_rows": rounds})
+    # the host formula: live edges over live nodes (fp32), times P·4·1.03
+    # folded into one fp32 constant, plus 32 bytes per (live receiver, live
+    # sender, dropped co-neighbour) triple
+    nbr = circulant_neighbor_table(MAIN_N, MAIN_DEG)
+    f32 = np.float32
+    total, rec_total = 0.0, 0.0
+    for m in eng.scheduler.participation_mask(0, rounds):
+        mn = m[nbr]
+        deg = f32((m[:, None] * mn).sum()) / f32(m.sum())
+        rec = f32(32) * f32((m * mn.sum(1) * (1.0 - mn).sum(1)).sum())
+        total += float(deg * f32(f32(MAIN_P * 4) * f32(1.03)) + rec)
+        rec_total += float(rec)
+    print(f"[secure] bytes_sent={eng.bytes_sent} (host formula {total}); recovery_bytes="
+          f"{hist[-1]['recovery_bytes']} (host formula {rec_total})", flush=True)
+    if eng.bytes_sent != total or hist[-1]["recovery_bytes"] != rec_total:
+        raise AssertionError("secure path bytes differ from the host formula")
+    return launches, eng
+
+
 def main_path_engine(n, width, n_train, rounds, chunk, eval_every, device, init_params=None,
                      **sharing):
     from repro_torch import DLConfig, RoundEngine
@@ -377,39 +616,49 @@ def main_path_engine(n, width, n_train, rounds, chunk, eval_every, device, init_
                        init_params=init_params, device=device)
 
 
-def phase_main_path():
+def drive_path(path, eng, want):
+    """Run the engine's rounds with every kernel's launch count set to 0
+    just before and read just after, and hold the counts to ``want`` (the
+    kernels not named there: 0); check finite results and print rounds/s
+    (the rounds after the first chunk, evaluations included) and peak
+    device memory.  Returns the history and the counts."""
     import torch
 
-    t = time.time()
-    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None)
-    torch.cuda.synchronize()
-    print(f"[main] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
-          f"mix_mode={eng.mix_mode}", flush=True)
     assert eng.n_params == MAIN_P, eng.n_params
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     hist = eng.run(log=True)
     torch.cuda.synchronize()
     launches = read_launches()
-    rounds = eng.dl.rounds
-    print(f"[main] launches={launches}", flush=True)
-    if launches != {**{k: 0 for k in launches}, "gossip_mix_rows": rounds}:
-        raise AssertionError(f"main path launches {launches} in {rounds} rounds")
-    want_bytes = rounds * MAIN_DEG * MAIN_P * 4
-    if eng.bytes_sent != want_bytes:
-        raise AssertionError(f"bytes_sent {eng.bytes_sent} != {want_bytes}")
-    if not eng.sim_time_s > 0:
-        raise AssertionError(f"sim_time_s {eng.sim_time_s}")
-    if not all(math.isfinite(h["acc_mean"]) for h in hist):
-        raise AssertionError(f"non-finite acc_mean in {hist}")
+    print(f"[{path}] launches={launches}", flush=True)
+    want = {**{k: 0 for k in launches}, **want}
+    if launches != want:
+        raise AssertionError(f"{path} path launches {launches}, want {want}")
+    if not (eng.sim_time_s > 0 and all(math.isfinite(h["acc_mean"]) for h in hist)):
+        raise AssertionError(f"sim_time_s {eng.sim_time_s} or non-finite acc_mean in {hist}")
     if not bool(torch.isfinite(eng.X).all()):
-        raise AssertionError("non-finite parameters after the main path")
+        raise AssertionError(f"non-finite parameters after the {path} path")
     span = hist[-1]["round"] - hist[0]["round"]
     rps = span / (hist[-1]["wall_s"] - hist[0]["wall_s"])
-    print(f"[main] rounds/s after the first chunk (evals included): {rps:.4f}; "
+    print(f"[{path}] rounds/s after the first chunk (evals included): {rps:.4f}; "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} B; "
           f"bytes_sent={eng.bytes_sent} sim_time_s={eng.sim_time_s} "
           f"acc_mean={[h['acc_mean'] for h in hist]}", flush=True)
+    return hist, launches
+
+
+def phase_main_path():
+    """Full sharing: one gather-merge launch per round."""
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None)
+    print(f"[main] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
+          f"mix_mode={eng.mix_mode}", flush=True)
+    rounds = eng.dl.rounds
+    _, launches = drive_path("main", eng, {"gossip_mix_rows": rounds})
+    want_bytes = rounds * MAIN_DEG * MAIN_P * 4
+    if eng.bytes_sent != want_bytes:
+        raise AssertionError(f"bytes_sent {eng.bytes_sent} != {want_bytes}")
     return launches, eng
 
 
@@ -418,11 +667,14 @@ def kernel_wrappers():
     from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import quantize as q
     from repro_torch.kernels import scatter_gossip as sg
+    from repro_torch.kernels import secure_mask as sm
     from repro_torch.kernels import sparsify as sp
 
     return {"abs_histogram_rows": sp.abs_histogram_rows, "quantize": q.quantize,
             "dequantize": q.dequantize, "payload_mix_rows": sg.payload_mix_rows,
-            "gossip_mix_rows": gm.gossip_mix_rows}
+            "gossip_mix_rows": gm.gossip_mix_rows, "threshold_mask": sp.threshold_mask,
+            "secure_mask_apply_rows_keyed": sm.secure_mask_apply_rows_keyed,
+            "secure_mask_apply_rows": sm.secure_mask_apply_rows}
 
 
 def read_launches():
@@ -438,57 +690,46 @@ def phase_topk_path():
     """TopK sharing at a 10% budget with int8 payloads on the main path's
     configuration: per round two histogram launches, one quantize, one
     dequantize, one payload merge and no gather merge."""
-    import torch
-
     t = time.time()
     eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
                            sharing="topk", budget=0.1, payload_quant=True)
-    torch.cuda.synchronize()
     print(f"[topk] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
           f"k={MAIN_K} wire={eng.wire_dtype} share_stage_bytes={eng.share_stage_bytes}",
           flush=True)
-    assert eng.n_params == MAIN_P, eng.n_params
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    hist = eng.run(log=True)
-    torch.cuda.synchronize()
-    launches = read_launches()
     rounds = eng.dl.rounds
-    print(f"[topk] launches={launches}", flush=True)
-    want = {"abs_histogram_rows": 2 * rounds, "quantize": rounds, "dequantize": rounds,
-            "payload_mix_rows": rounds, "gossip_mix_rows": 0}
-    if launches != want:
-        raise AssertionError(f"topk path launches {launches}, want {want}")
+    _, launches = drive_path("topk", eng, {
+        "abs_histogram_rows": 2 * rounds, "quantize": rounds, "dequantize": rounds,
+        "payload_mix_rows": rounds})
     want_bytes = rounds * MAIN_DEG * (MAIN_K * 5 + 4)
     if eng.bytes_sent != want_bytes:
         raise AssertionError(f"bytes_sent {eng.bytes_sent} != {want_bytes}")
-    if not all(math.isfinite(h["acc_mean"]) for h in hist):
-        raise AssertionError(f"non-finite acc_mean in {hist}")
-    if not bool(torch.isfinite(eng.X).all()):
-        raise AssertionError("non-finite parameters after the topk path")
-    span = hist[-1]["round"] - hist[0]["round"]
-    rps = span / (hist[-1]["wall_s"] - hist[0]["wall_s"])
-    print(f"[topk] rounds/s after the first chunk (evals included): {rps:.4f}; "
-          f"max_memory_allocated={torch.cuda.max_memory_allocated()} B; "
-          f"bytes_sent={eng.bytes_sent} sim_time_s={eng.sim_time_s} "
-          f"acc_mean={[h['acc_mean'] for h in hist]}", flush=True)
     return launches, eng
 
 
-def time_share_step(eng, reps=3):
+def time_share_step(eng, path, reps=3):
     """Device-synchronised wall ms of the strategy's share step alone on
-    the engine's state (it advances the strategy state; run it last)."""
+    the engine's state, for the round after the profiled one, churn
+    reweight and key included (it advances the strategy state; run it
+    last)."""
     import torch
 
+    rnd = eng.dl.rounds + 1
+    act = None
+    if eng.dl.participation < 1.0:
+        act_np = eng.scheduler.participation_mask(rnd, 1)[0]
+        act = (torch.as_tensor(act_np, device=eng.device), act_np)
+    W, deg, key, kw = eng.steps.share_operands(eng._mix_static, rnd, act)
     times = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(reps):
         torch.cuda.synchronize()
         t = time.time()
-        eng.sharing.round(eng.X, eng._mix_static, eng.share_state, key=None,
-                          degree=eng._mean_degree)
+        eng.sharing.round(eng.X, W, eng.share_state, key=key, degree=deg, rnd=rnd, **kw)
         torch.cuda.synchronize()
         times.append((time.time() - t) * 1e3)
-    print(f"[topk] share step alone (wall ms, synchronised): {times}", flush=True)
+    print(f"[{path}] share step alone (wall ms, synchronised): {times}; its peak "
+          f"max_memory_allocated={torch.cuda.max_memory_allocated()} B", flush=True)
 
 
 def phase_profile(eng, path):
@@ -551,8 +792,9 @@ class Recorder:
 
 def phase_reference():
     """At N=16, width 8, 2 rounds, on the card and on the CPU (plain
-    twins, CPU convolutions) from one set of parameters: full sharing must
-    agree after the run.  TopK (int8) and CHOCO-SGD, both with the
+    twins, CPU convolutions) from one set of parameters: full sharing and
+    secure aggregation under churn with recovery must agree after the run,
+    with equal bytes and fault counters.  TopK (int8) and CHOCO-SGD, both with the
     histogram selector: every share step of the card's run, replayed on the
     CPU from the same inputs, must agree, and so must the bytes.  (Across
     whole runs the compressed strategies are discontinuous: a fp32
@@ -563,7 +805,7 @@ def phase_reference():
     from repro_torch.core.engine import make_strategy
     from repro_torch.utils.pytree import tree_map
 
-    for sharing in (dict(sharing="full"),
+    for sharing in (dict(sharing="full"), SECURE_CFG,
                     dict(sharing="topk", budget=0.1, payload_quant=True),
                     dict(sharing="choco", budget=0.1)):
         gpu = main_path_engine(16, 8, 2048, rounds=2, chunk=2, eval_every=1, device="cuda",
@@ -571,7 +813,7 @@ def phase_reference():
         init = tree_map(lambda a: a.cpu().clone(), gpu.params)
         cpu = main_path_engine(16, 8, 2048, rounds=2, chunk=2, eval_every=1, device="cpu",
                                init_params=init, **sharing)
-        full = sharing["sharing"] == "full"
+        full = sharing.get("sharing", "full") == "full"
         if not full:
             rec = Recorder(dataclasses.replace(gpu.sharing, selector="hist"))
             gpu.sharing = gpu.steps.sharing = rec
@@ -582,8 +824,10 @@ def phase_reference():
         print(f"[reference] {sharing}: N=16 width 8, 2 rounds: max |X_gpu - X_cpu| = {diff}; "
               f"bytes gpu={gpu.bytes_sent} cpu={cpu.bytes_sent}; "
               f"sim_time_s gpu={gpu.sim_time_s} cpu={cpu.sim_time_s}", flush=True)
-        if gpu.bytes_sent != cpu.bytes_sent:
-            raise AssertionError("bytes_sent differs between card and CPU")
+        if gpu.bytes_sent != cpu.bytes_sent or gpu.history[-1].keys() != cpu.history[-1].keys():
+            raise AssertionError("bytes_sent or the history keys differ between card and CPU")
+        if gpu.history[-1].get("recovery_bytes") != cpu.history[-1].get("recovery_bytes"):
+            raise AssertionError("recovery_bytes differ between card and CPU")
         if full:
             if not diff <= 1e-4:
                 raise AssertionError(f"card and CPU disagree: {diff}")
@@ -600,6 +844,16 @@ def phase_reference():
                 raise AssertionError(f"share step card and CPU disagree: {d}, {nbytes} vs {nbc}")
         if len(rec.log) != 2:
             raise AssertionError(f"{len(rec.log)} share steps recorded, want 2")
+
+
+def release():
+    """Free a dropped engine before the next path: an engine and its
+    scheduler refer to each other, so only the collector frees them, and a
+    path's peak memory would otherwise hold the last path's state too."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -631,22 +885,37 @@ def main():
     launches = {"gossip_mix_rows": launches["gossip_mix_rows"]}
     phase_profile(eng, "main")
     del eng
-    torch.cuda.empty_cache()
+    release()
     topk_launches, eng = phase_topk_path()
     phase_profile(eng, "topk")
-    time_share_step(eng)
+    time_share_step(eng, "topk")
     del eng
-    torch.cuda.empty_cache()
+    release()
+    int_rate, sms, mhz = int32_rate()
+    print(f"[device] {sms} SMs, max SM clock {mhz} MHz: {int_rate:.6g} INT32 ops/s", flush=True)
+    checks.update(phase_secure_kernels(int_rate))
+    entry_launches = phase_entry_points()
+    secure_launches, eng = phase_secure_path()
+    phase_profile(eng, "secure")
+    time_share_step(eng, "secure")
+    del eng
+    release()
     phase_reference()
 
     checks["gossip_mix_rows"] = checks.pop("main")
-    launches.update({k: v for k, v in topk_launches.items() if k != "gossip_mix_rows"})
+    launches.update({k: v for k, v in topk_launches.items()
+                     if k in ("abs_histogram_rows", "quantize", "dequantize", "payload_mix_rows")})
+    launches["secure_mask_apply_rows_keyed"] = secure_launches["secure_mask_apply_rows_keyed"]
+    launches.update({k: entry_launches[k] for k in ("threshold_mask", "secure_mask_apply_rows")})
     sources = {
         "gossip_mix_rows": ("gossip_mix.cu", "src/repro/kernels/gossip_mix.py:58"),
         "payload_mix_rows": ("scatter_gossip.cu", "src/repro/kernels/scatter_gossip.py:56"),
         "abs_histogram_rows": ("sparsify.cu", "src/repro/kernels/sparsify.py:117"),
         "quantize": ("quantize.cu", "src/repro/kernels/quantize.py:36"),
         "dequantize": ("quantize.cu", "src/repro/kernels/quantize.py:78"),
+        "threshold_mask": ("sparsify.cu", "src/repro/kernels/sparsify.py:76"),
+        "secure_mask_apply_rows_keyed": ("secure_mask.cu", "src/repro/kernels/secure_mask.py:161"),
+        "secure_mask_apply_rows": ("secure_mask.cu", "src/repro/kernels/secure_mask.py:77"),
     }
     kernels = []
     for kernel, (src, replaces) in sources.items():

@@ -9,11 +9,13 @@ sharing strategy — for a sparse overlay, one launch of the fused
 gather-merge kernel (``kernels/gossip_mix.py``).  The dataset lives on
 the device and each round's batches are gathered there by index.
 
-The port covers the synchronous scheduler with full sharing and with the
-magnitude-selected compressed sharing (TopK, CHOCO-SGD; payload wire on or
-off, int8 payload codec), full participation, no faults, on one device.
-``DLConfig.validate()`` raises ``NotImplementedError`` for every knob
-outside it.
+The port covers the synchronous scheduler on one device with full
+sharing, the magnitude-selected compressed sharing (TopK, CHOCO-SGD;
+payload wire on or off, int8 payload codec) and secure aggregation (with
+the seed-recovery pass under churn); churn (per-round participation
+masks, node- or machine-level) with full sharing and secure aggregation;
+no fault injection.  ``DLConfig.validate()`` raises
+``NotImplementedError`` for every knob outside it.
 
 Device and numerics: the engine runs on the card (``device=None`` means
 ``"cuda"``) and raises if there is none; pass ``device="cpu"`` to run on
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch import prng
 from repro_torch.core import sharing as sharing_lib
 from repro_torch.core.network import (
     NetworkModel,
@@ -42,6 +45,7 @@ from repro_torch.core.network import (
     wan_deployment,
 )
 from repro_torch.core.scheduler import make_scheduler
+from repro_torch.core.secure import SecureAggregation
 from repro_torch.core.steps import RoundSteps
 from repro_torch.core.topology import Graph, SparseTopology
 from repro_torch.optim import Optimizer
@@ -116,6 +120,18 @@ class DLConfig:
         # sharing-strategy knob compatibility, as the JAX package checks it
         sparsified = sharing_lib.strategy_takes_budget(self.sharing)
         if self.secure:
+            if self.topology == "dynamic":
+                bad("secure=True needs a static graph (the pairwise-mask "
+                    "PRF schedule is per-edge); topology='dynamic' has none")
+            crashes = self.faults is not None and bool(getattr(self.faults, "crashes", ()))
+            if (
+                self.participation < 1.0 or self.churn_machines > 0 or crashes
+            ) and not self.secure_recovery:
+                bad("secure=True under churn (participation < 1, "
+                    "churn_machines > 0, or FaultPlan crash schedules) "
+                    "needs secure_recovery=True: without the Bonawitz "
+                    "seed-recovery pass a dropped node's pairwise masks "
+                    "would not cancel")
             if self.payload == "on" or self.payload_quant or self.randk_sampler != "uniform":
                 bad("payload/payload_quant/randk_sampler do not compose with "
                     "secure=True (masked messages are full fp32 vectors)")
@@ -136,10 +152,10 @@ class DLConfig:
             todo(f"semantics={self.semantics!r}")
         if not sharing_lib.is_full_sharing(self.sharing):
             sharing_lib.make_sharing(self.sharing)  # not ported, or unknown
-        if self.secure:
-            todo("secure aggregation (secure=True)")
-        if self.participation < 1.0 or self.churn_machines > 0:
-            todo("churn (participation < 1, churn_machines > 0)")
+        if self.participation < 1.0 and not (self.secure or sharing_lib.is_full_sharing(self.sharing)):
+            # TopK's last_shared and CHOCO's x̂ are updated in place; a down
+            # node's would have to be restored
+            todo(f"churn (participation < 1) with sharing={self.sharing!r}")
         if self.faults is not None:
             todo("fault injection (faults)")
         if self.shard_devices > 0:
@@ -189,7 +205,7 @@ class DLConfig:
         if self.compute_spread > 0 and self.compute_time_s == 0:
             bad("compute_spread scales compute_time_s, which is 0 — set a "
                 "base compute_time_s")
-        if self.secure_recovery:
+        if self.secure_recovery and not self.secure:
             bad("secure_recovery=True is the seed-recovery pass of secure "
                 "aggregation; it needs secure=True")
         if self.batch_keying != "stream":
@@ -321,33 +337,40 @@ class RoundEngine:
         self.X = self._init_state(init_params_fn, init_params)
         self.opt_state = self.opt.init(self.params)
         self.n_params = int(self.X.shape[1])
-        self.sharing = make_strategy(dl)
-        self.share_state = self.sharing.init_state(self.X)
-        self.wire_dtype = self.sharing.wire_dtype(self.X.dtype)
-        self.share_stage_bytes = int(self.sharing.stage_bytes_per_round(n, self.n_params))
+        # secure aggregation keys its masks by the graph's neighbour table,
+        # so it always builds the graph
         circulant_direct = (
             dl.topology in ("ring", "regular")
             and n > _DENSE_GRAPH_MAX_N
+            and not dl.secure
             and dl.mixing != "dense"
         )
         self.graph = None if circulant_direct else build_graph(dl)
+        if dl.secure:
+            self.sharing = SecureAggregation(self.graph.adj, recovery=dl.secure_recovery)
+        else:
+            self.sharing = make_strategy(dl)
+        self.share_state = self.sharing.init_state(self.X)
+        self.wire_dtype = self.sharing.wire_dtype(self.X.dtype)
+        self.share_stage_bytes = int(self.sharing.stage_bytes_per_round(n, self.n_params))
         self.mix_mode = self._resolve_mix_mode()
         if self.graph is not None:
             self._mean_degree = float(self.graph.degrees().mean())
             if self.mix_mode == "sparse":
                 st = SparseTopology.from_graph(self.graph)
-                self._mix_static = st.to(dev)
-                self.topo_stage_bytes_peak = st.stage_bytes()
             else:
                 W_np = self.graph.metropolis_hastings().astype(np.float32)
                 self._mix_static = torch.as_tensor(W_np, device=dev)
                 self.topo_stage_bytes_peak = int(W_np.nbytes)
+                live_edges = (None, W_np * (1.0 - np.eye(n, dtype=np.float32)) > 0)
         else:
             deg = 2 if dl.topology == "ring" else dl.degree
             st = SparseTopology.regular_circulant(n, deg)
             self._mean_degree = float(st.dmax)
+        if self.mix_mode == "sparse":
             self._mix_static = st.to(dev)
             self.topo_stage_bytes_peak = st.stage_bytes()
+            live_edges = (st.nbr, st.w > 0)
         self.network_model = build_network(dl)
         if self.network_model is not None:
             lat, gp = self.network_model.matrices()
@@ -371,6 +394,8 @@ class RoundEngine:
             parallel_sends=dl.parallel_sends,
             lat=self._lat,
             goodput=self._goodput,
+            base_key=prng.key(dl.seed + 17),
+            live_edges=live_edges,
         )
         self.scheduler = make_scheduler(self)
         self.history: List[Dict] = []
@@ -436,6 +461,7 @@ class RoundEngine:
             "sim_time_s": self.sim_time_s,
             "wire_dtype": self.wire_dtype,
         }
+        rec.update(self.scheduler.extra_metrics())
         self.history.append(rec)
         if log:
             print(

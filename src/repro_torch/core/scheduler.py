@@ -4,13 +4,27 @@ Only the synchronous round barrier is ported.  A span of rounds is a
 Python loop on the host that queues each round's work on the device; the
 per-round metrics stay on the device until the span ends, when one host
 sync reads them all.  The engine's ``chunk_rounds`` sets that cadence and
-nothing else: batches are a pure function of the absolute round, and the
-metrics are summed round by round in float64, so the trajectory and the
-totals do not depend on it.
+nothing else: batches and participation masks are pure functions of the
+absolute round, and the metrics are summed round by round in float64, so
+the trajectory and the totals do not depend on it.
 """
 from __future__ import annotations
 
+from typing import Dict
+
+import numpy as np
 import torch
+
+# the reference's fault-counter schema (its core/faults.py STAT_KEYS): the
+# history keys a run with secure recovery reports
+STAT_KEYS = (
+    "faults_injected",
+    "faults_detected",
+    "faults_survived",
+    "faults_recovered",
+    "retry_total",
+    "recovery_bytes",
+)
 
 
 class SyncScheduler:
@@ -23,6 +37,44 @@ class SyncScheduler:
 
     def __init__(self, eng):
         self.eng = eng
+        # host float64 fault-counter totals; only secure recovery moves one
+        self._fault_totals = {k: 0.0 for k in STAT_KEYS}
+        self._track_faults = eng.dl.secure and eng.dl.secure_recovery
+
+    def participation_mask(self, start: int, n_rounds: int) -> np.ndarray:
+        """(R, N) {0,1} activity masks for rounds [start, start+n_rounds),
+        bitwise the reference's: a splitmix64 hash of (seed, absolute
+        round, unit), so masks do not depend on the chunking.  The unit is
+        the node, or with ``churn_machines=M`` the machine, whose
+        round-robin node set drops together.  The last column is each
+        round's fallback draw: if every unit drew down, one is kept up."""
+        dl = self.eng.dl
+        n = dl.n_nodes
+        if dl.participation >= 1.0:
+            return np.ones((n_rounds, n), np.float32)
+        m_units = dl.churn_machines if dl.churn_machines > 0 else n
+        with np.errstate(over="ignore"):  # uint64 wraparound is the point
+            x = (
+                np.uint64(dl.seed * 1_000_003 + 7_919)
+                * np.uint64(0x9E3779B97F4A7C15)
+                + np.arange(start, start + n_rounds, dtype=np.uint64)[:, None]
+                * np.uint64(0xBF58476D1CE4E5B9)
+                + np.arange(m_units + 1, dtype=np.uint64)[None, :]
+                * np.uint64(0x94D049BB133111EB)
+            )
+            x ^= x >> np.uint64(30)
+            x *= np.uint64(0xBF58476D1CE4E5B9)
+            x ^= x >> np.uint64(27)
+            x *= np.uint64(0x94D049BB133111EB)
+            x ^= x >> np.uint64(31)
+        u = (x >> np.uint64(11)).astype(np.float64) * (2.0 ** -53)
+        up = u[:, :m_units] < dl.participation
+        dead = ~up.any(1)
+        if dead.any():  # keep at least one unit alive per round
+            up[dead, (u[dead, m_units] * m_units).astype(np.int64)] = True
+        if dl.churn_machines > 0:
+            up = up[:, np.arange(n) % dl.churn_machines]
+        return up.astype(np.float32)
 
     def _stage_indices(self, start: int, n_rounds: int) -> torch.Tensor:
         """(R, L, N, B) sample indices of rounds [start, start+R) on the
@@ -34,20 +86,38 @@ class SyncScheduler:
     def run_span(self, start: int, n_rounds: int) -> None:
         eng = self.eng
         idx = self._stage_indices(start, n_rounds)
-        nbytes, times = [], []
+        act_np = act_dev = None
+        if eng.dl.participation < 1.0:
+            act_np = self.participation_mask(start, n_rounds)
+            act_dev = torch.as_tensor(act_np, device=eng.device)
+        nbytes, times, recs = [], [], []
         for r in range(n_rounds):
             bx = eng._dev_x[idx[r]]  # (L, N, B, ...)
             by = eng._dev_y[idx[r]]
-            eng.X, eng.opt_state, eng.share_state, nb, t = eng.steps.train_and_mix(
+            act = None if act_np is None else (act_dev[r], act_np[r])
+            eng.X, eng.opt_state, eng.share_state, nb, t, rec = eng.steps.train_and_mix(
                 eng.X, eng.opt_state, eng.share_state, bx, by, eng._mix_static,
-                start + r,
+                start + r, act,
             )
             nbytes.append(nb)
             times.append(t)
+            recs.append(rec)
         # one host sync for the span; per-round float64 sums in round order
-        for nb, t in zip(nbytes, torch.stack(times).cpu().double().tolist()):
+        for nb, t, rec in zip(nbytes, torch.stack(times).cpu().double().tolist(), recs):
             eng.bytes_sent += nb
             eng.sim_time_s += t
+            self._fault_totals["recovery_bytes"] += rec
+
+    def extra_metrics(self) -> Dict:
+        """Metrics merged into each history record: the running fault
+        counters, when secure recovery is on (the others stay 0: fault
+        injection is not ported)."""
+        if not self._track_faults:
+            return {}
+        t = self._fault_totals
+        m = {k: int(round(t[k])) for k in STAT_KEYS if k != "recovery_bytes"}
+        m["recovery_bytes"] = t["recovery_bytes"]
+        return m
 
 
 def make_scheduler(eng) -> SyncScheduler:

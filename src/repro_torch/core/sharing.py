@@ -9,9 +9,9 @@ its top-k compressor, optionally with the int8 wire codec.  They emit
 per-node payloads, ``idx`` (N, k) int32 and ``val`` (N, k), aggregated by
 :func:`repro_torch.core.mixing.mix_payload` (one payload-merge kernel
 launch; ``payload=False`` takes the dense-mask oracle).  Random-k,
-quantized full sharing and CHOCO's random-k compressor draw from the
-reference's Threefry keys and raise ``NotImplementedError`` until that
-generator is ported.
+quantized full sharing and CHOCO's random-k compressor draw
+``jax.random`` bits in a layout ``repro_torch.prng`` does not have yet,
+and raise ``NotImplementedError``.  The churn reweights live here too.
 
 Unlike the JAX package's pure functions, ``round`` updates the strategy
 state (``last_shared``, ``xhat``) in place: at N=1024 each is a 2.4 GB
@@ -22,10 +22,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core.compression import dequantize_int8, quantize_int8
 from repro_torch.core.mixing import apply_W, mix_payload, mix_payload_masked
+from repro_torch.core.topology import SparseTopology
 from repro_torch.kernels.sparsify import topk_threshold_rows
 
 BYTES_IDX = 4   # int32 index on the wire
@@ -89,6 +91,41 @@ def sparse_aggregate(X, W, M):
     :func:`apply_W` passes: X + W@(M*X) - X*(W@M)."""
     Xf, Mf = X.to(torch.float32), M.to(torch.float32)
     return (Xf + apply_W(W, Mf * Xf) - Xf * apply_W(W, Mf)).to(X.dtype)
+
+
+def participation_reweight(W, active):
+    """Reweight a row-stochastic (N, N) mixing matrix for a per-round
+    participation mask (churn): active (N,) {0,1} on W's device; a down node
+    neither sends nor receives, so every edge touching it goes and the
+    freed mass returns to each row's diagonal (a down node's row becomes
+    e_i).  Returns W' only: the byte accounting's degree comes from
+    :func:`participation_deg_eff` on the host, without reading the device."""
+    Wf = W.to(torch.float32)
+    m = active.to(torch.float32)
+    diag = torch.eye(Wf.shape[0], dtype=torch.float32, device=Wf.device)
+    off = Wf * (1.0 - diag) * m[:, None] * m[None, :]
+    return off + diag * (1.0 - off.sum(1, keepdim=True))
+
+
+def participation_reweight_sparse(topo: SparseTopology, active):
+    """Sparse-form :func:`participation_reweight`: neighbour slots with a
+    down endpoint get weight 0 and the freed mass returns to ``w_self``
+    (a down node's row becomes the identity); O(N·D)."""
+    m = active.to(torch.float32)
+    w = topo.w.to(torch.float32) * (m[:, None] * m[topo.nbr.long()])
+    return SparseTopology(topo.nbr, w, 1.0 - w.sum(-1))
+
+
+def participation_deg_eff(nbr, live, active) -> np.float32:
+    """The churn round's mean live degree, as the reference's reweights
+    compute it (live edges over active nodes, one fp32 division), from
+    host arrays: ``live`` (N, E) bool marks the static edges, ``nbr``
+    (N, E) their far endpoints (None for the columns of a dense W),
+    ``active`` (N,) the round's mask."""
+    m = np.asarray(active) > 0
+    far = m[None, :] if nbr is None else m[nbr]
+    edges = np.count_nonzero(live & m[:, None] & far)
+    return np.float32(edges) / np.float32(max(int(m.sum()), 1))
 
 
 class FullSharing:

@@ -3,23 +3,48 @@
 ``RoundSteps`` holds the static pieces of an experiment (loss, optimizer,
 sharing strategy, per-node compute times, link matrices) and no mutable
 state.  The caller threads the flat (N, P) parameter matrix X through
-:meth:`RoundSteps.train_and_mix`.  Only full participation without fault
-injection is ported; no ported strategy draws random numbers, so the
-share step passes ``key=None``.
+:meth:`RoundSteps.train_and_mix`.  Churn (a per-round participation mask)
+is ported; fault injection is not.
+
+Under churn the round's degree, bytes and seed-recovery bytes depend on
+the mask.  The mask is made on the host, so they are computed there, in
+the reference's fp32 operation order, and the device is never read
+inside a round.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import grad, vmap
 
+from repro_torch import prng
 from repro_torch.core.network import node_round_times
+from repro_torch.core.secure import SEED_SHARE_BYTES
+from repro_torch.core.sharing import (
+    participation_deg_eff,
+    participation_reweight,
+    participation_reweight_sparse,
+)
 from repro_torch.core.topology import SparseTopology
 from repro_torch.optim.optimizers import apply_updates_
-from repro_torch.utils.pytree import tree_unvector
+from repro_torch.utils.pytree import tree_map, tree_unvector
+
+
+def node_scale(tree, scale):
+    """Multiply every node-stacked leaf by a per-node (N,) factor."""
+    return tree_map(lambda a: a * scale.reshape((-1,) + (1,) * (a.dim() - 1)), tree)
+
+
+def node_where(mask, new, old):
+    """Per-node select between two node-stacked trees: ``new`` where
+    mask > 0, else ``old``."""
+    return tree_map(
+        lambda n, o: torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o),
+        new, old,
+    )
 
 
 @dataclasses.dataclass(eq=False)
@@ -28,6 +53,9 @@ class RoundSteps:
 
     compute_node: (N,) fp32 per-node local compute seconds.
     lat/goodput: (N, N) fp32 link matrices of the simulated network, or None.
+    base_key: the ``prng`` key each round's sharing key is folded from.
+    live_edges: ``(nbr, live)`` host arrays of the static mixing operand's
+    edges (see ``sharing.participation_deg_eff``), for churn rounds.
     """
 
     loss_fn: Callable
@@ -39,25 +67,32 @@ class RoundSteps:
     parallel_sends: bool
     lat: Optional[torch.Tensor] = None
     goodput: Optional[torch.Tensor] = None
+    base_key: prng.Key = prng.key(17)
+    live_edges: Optional[Tuple[Optional[np.ndarray], np.ndarray]] = None
 
-    def local_train(self, params, opt_state, bx, by):
+    def local_train(self, params, opt_state, bx, by, active=None):
         """``bx.shape[0]`` SGD steps on every node at once: per-node
         gradients by ``vmap(grad(loss_fn))``.  ``params`` are views of the
-        flat state and are updated in place."""
+        flat state and are updated in place.  A down node (active 0) takes
+        a zero update and keeps its optimizer state."""
         node_grad = vmap(grad(self.loss_fn))
         for s in range(bx.shape[0]):
             grads = node_grad(params, bx[s], by[s])
-            updates, opt_state = self.opt.update(grads, opt_state, params)
+            updates, new_opt = self.opt.update(grads, opt_state, params)
+            if active is not None:
+                updates = node_scale(updates, active)
+                new_opt = node_where(active, new_opt, opt_state)
             apply_updates_(params, updates)
+            opt_state = new_opt
         return params, opt_state
 
-    def round_time(self, Wm, nbytes: float, deg_eff: float):
+    def round_time(self, Wm, nbytes: float, deg_eff: float, active=None):
         """Simulated synchronous round wall-clock, fp32 on the device: the
-        max over nodes of ``network.node_round_times``.  For a
-        SparseTopology the per-edge latency and goodput are gathered
-        through the neighbor table."""
+        max over nodes of ``network.node_round_times`` (a down node's time
+        counts 0).  For a SparseTopology the per-edge latency and goodput
+        are gathered through the neighbor table."""
         dev = self.lat.device
-        nb = torch.tensor(nbytes, dtype=torch.float32, device=dev)
+        nb = torch.full((), nbytes, dtype=torch.float32, device=dev)
         per_edge = nb / max(deg_eff, 1e-9) if deg_eff > 0 else torch.zeros_like(nb)
         if isinstance(Wm, SparseTopology):
             rows = torch.arange(Wm.nbr.shape[0], device=dev)[:, None]
@@ -72,22 +107,66 @@ class RoundSteps:
             lat, gp = self.lat, self.goodput
         node_t = node_round_times(A, lat, gp, per_edge, self.compute_node,
                                   self.parallel_sends)
+        if active is not None:
+            node_t = active * node_t
         return node_t.max()
 
-    def train_and_mix(self, X, opt_state, share_state, bx, by, W, rnd: int = 0):
+    def _secure_recovery_bytes(self, active: np.ndarray) -> np.float32:
+        """Wire bytes of the seed-recovery pass: one revealed seed share per
+        (live receiver, live sender, dropped co-neighbour) triple of the
+        secure-aggregation neighbour table.  Counts are integers, exact in
+        fp32 as the reference sums them."""
+        a = active.astype(np.float32)
+        valid = self.sharing._valid.astype(np.float32)
+        nbr_act = a[self.sharing._nbr]
+        live, dead = valid * nbr_act, valid * (1.0 - nbr_act)
+        pairs = np.float32(np.sum(a * live.sum(1) * dead.sum(1), dtype=np.float32))
+        return pairs * np.float32(SEED_SHARE_BYTES)
+
+    def share_operands(self, W, rnd: int, act=None):
+        """The share step's operands for round ``rnd``: ``(Wm, degree, key,
+        kwargs)``.  Under churn (``act`` as in :meth:`train_and_mix`) the
+        mixing operand is reweighted on the device, the degree is computed
+        on the host, and a strategy that ``needs_act`` gets the mask as
+        ``act=``."""
+        key = prng.fold_in(self.base_key, rnd)
+        if act is None:
+            return W, self.mean_degree, key, {}
+        if isinstance(W, SparseTopology):
+            Wm = participation_reweight_sparse(W, act[0])
+        else:
+            Wm = participation_reweight(W, act[0])
+        deg = participation_deg_eff(*self.live_edges, act[1])
+        share_kw = {"act": act[0]} if getattr(self.sharing, "needs_act", False) else {}
+        return Wm, deg, key, share_kw
+
+    def train_and_mix(self, X, opt_state, share_state, bx, by, W, rnd: int = 0, act=None):
         """One round: local steps (in place on X), then the share/mix step.
-        Returns ``(X', opt_state, share_state, nbytes, sim_t)``: the bytes
-        each node sent as an fp32-rounded float, and the simulated round
-        time as a 0-d device tensor."""
+
+        ``act`` is None for full participation, else the round's mask as
+        ``(device (N,) fp32 tensor, host (N,) numpy array)``: the mixing
+        operand is churn-reweighted on the device, the degree and bytes
+        are computed on the host, and down nodes keep their parameters.
+        Returns ``(X', opt_state, share_state, nbytes, sim_t,
+        recovery_bytes)``: the bytes each node sent and the seed-recovery
+        bytes as fp32-rounded floats, and the simulated round time as a
+        0-d device tensor."""
+        active = None if act is None else act[0]
         params = tree_unvector(X, self.template)
-        _, opt_state = self.local_train(params, opt_state, bx, by)
-        deg = self.mean_degree
+        _, opt_state = self.local_train(params, opt_state, bx, by, active)
+        Wm, deg, key, share_kw = self.share_operands(W, rnd, act)
         X2, share_state, nbytes = self.sharing.round(
-            X, W, share_state, key=None, degree=deg, rnd=rnd
+            X, Wm, share_state, key=key, degree=deg, rnd=rnd, **share_kw
         )
-        nbytes = float(np.float32(nbytes))
+        nbytes = np.float32(nbytes)
+        rec = np.float32(0.0)
+        if share_kw:
+            rec = self._secure_recovery_bytes(act[1])
+            nbytes = nbytes + rec
+        if active is not None:
+            X2 = torch.where(active[:, None] > 0, X2, X)
         if self.lat is not None:
-            sim_t = self.round_time(W, nbytes, deg)
+            sim_t = self.round_time(Wm, float(nbytes), float(deg), active)
         else:
             sim_t = torch.zeros((), dtype=torch.float32, device=X.device)
-        return X2, opt_state, share_state, nbytes, sim_t
+        return X2, opt_state, share_state, float(nbytes), sim_t, float(rec)

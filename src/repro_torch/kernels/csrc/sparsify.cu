@@ -1,4 +1,4 @@
-// Row-batched |x| histogram for Hopper (sm_90a).
+// Row-batched |x| histogram and the threshold mask for Hopper (sm_90a).
 //
 //   hist[n, b] = #{p < P : #{e < E : |x[n, p]| >= edges[n, e]} = b}
 //
@@ -26,7 +26,15 @@
 // caller says which) counts the compare over every edge instead.  A NaN
 // magnitude compares false with every edge and lands in bucket 0.
 //
-// Plain C interface (loaded with ctypes); the entry point returns
+// The threshold mask (threshold_mask_f32) keeps the entries with
+// |x| >= t: vals[i] = x[i] where kept, else +0, and mask[i] = 1 where kept,
+// else 0; a NaN is dropped.  x (M,) fp32, t one fp32 on the device (the
+// threshold the histogram pass picked, so no host read sits between them),
+// vals (M,) fp32, mask (M,) bytes.  Replaces _mask_kernel behind
+// threshold_mask in src/repro/kernels/sparsify.py.  Bound: bytes, 9 per
+// element for a compare and a select.
+//
+// Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after the launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +45,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kItems = 32;    // elements per thread per block
 constexpr int kMaxEdges = 1024;
+constexpr int kMaskItems = 4;  // elements per thread of the threshold mask
 
 __global__ void __launch_bounds__(kThreads)
 abs_histogram_rows_kernel(const float* __restrict__ x, int64_t ldx, int64_t P,
@@ -83,6 +92,19 @@ abs_histogram_rows_kernel(const float* __restrict__ x, int64_t ldx, int64_t P,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+threshold_mask_kernel(const float* __restrict__ x, int64_t M, const float* __restrict__ t,
+                      float* __restrict__ vals, uint8_t* __restrict__ mask) {
+  const float th = *t;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < M;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const float v = x[i];
+    const bool keep = fabsf(v) >= th;
+    vals[i] = keep ? v : 0.f;
+    mask[i] = keep ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -100,6 +122,19 @@ int abs_histogram_rows_f32(const void* x, long long ldx, int N, long long P,
   abs_histogram_rows_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), ldx, P, static_cast<const float*>(edges), E,
       static_cast<const uint8_t*>(monotone), static_cast<int*>(hist));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int threshold_mask_f32(const void* x, long long M, const void* t, void* vals, void* mask,
+                       void* stream) {
+  if (M <= 0) return 0;
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kMaskItems;
+  int64_t blocks = (M + per_block - 1) / per_block;
+  if (blocks > 1 << 20) blocks = 1 << 20;  // the loop strides over the rest
+  threshold_mask_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), M, static_cast<const float*>(t),
+      static_cast<float*>(vals), static_cast<uint8_t*>(mask));
   return static_cast<int>(cudaGetLastError());
 }
 

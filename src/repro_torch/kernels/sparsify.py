@@ -1,6 +1,7 @@
 """Histogram top-k threshold: the Hopper port of the JAX package's
 ``kernels/sparsify.py`` (``abs_histogram_rows``, ``abs_histogram``,
-``topk_threshold_rows``).
+``threshold_mask``, ``topk_threshold_rows``, ``topk_threshold``) and of
+``kernels/ops.py topk_mask_approx``.
 
 A per-row top-k of a multi-million-element parameter matrix without a
 sort: one pass counts |x| per row into 128 log-spaced bins from max·1e-7
@@ -8,12 +9,14 @@ to max and picks the bracketing bin, a second pass counts into 128 linear
 bins inside it.  The result is a per-row threshold t with
 ``#{|x| >= t} >= k``, within one fine bin of exactly k.
 
-The counting pass is the CUDA kernel (``csrc/sparsify.cu``); the edges,
+The counting pass is a CUDA kernel (``csrc/sparsify.cu``); the edges,
 the picks and the cumulative sums around it are a few small torch ops on
-(N, 128) tables.  A tensor on the CPU goes to the plain twin
-:func:`abs_histogram_rows_ref`; a CUDA tensor launches the kernel or
-raises: there is no fallback.  The kernel is compiled on its first CUDA
-call, never at import.
+(N, 128) tables.  :func:`topk_mask_approx` then keeps |x| >= t in one
+pass of the same source's mask kernel, reading t on the device.  A tensor
+on the CPU goes to the plain twins :func:`abs_histogram_rows_ref` and
+:func:`threshold_mask_ref`; a CUDA tensor launches the kernel or raises:
+there is no fallback.  The kernels are compiled on their first CUDA call,
+never at import.
 
 The edges go through ``exp`` and ``log``.  The port takes both in fp64 and
 rounds to fp32, which gives the correctly rounded fp32 value on the card
@@ -37,14 +40,18 @@ MAX_EDGES = 1024  # the kernel's shared-memory histogram
 _REF_CHUNK = 1 << 27  # compare elements per step of the plain twin
 
 
+_P = ctypes.c_void_p
+_ARGTYPES = {
+    "abs_histogram_rows_f32": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P,
+                               ctypes.c_int, _P, _P, _P],
+    "threshold_mask_f32": [_P, ctypes.c_longlong, _P, _P, _P, _P],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = load_library("sparsify").abs_histogram_rows_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
+def _entry(name):
+    fn = getattr(load_library("sparsify"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
@@ -88,7 +95,7 @@ def abs_histogram_rows(x, edges):
     monotone = (edges[:, 1:] >= edges[:, :-1]).all(1).contiguous()
     hist = torch.zeros((n, e + 1), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _entry()(
+        err = _entry("abs_histogram_rows_f32")(
             x.data_ptr(), x.stride(0), n, p, edges.data_ptr(), e,
             monotone.data_ptr(), hist.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream,
@@ -158,3 +165,56 @@ def topk_threshold_rows(x, k: int, nbins: int = NBINS):
     fine = t0[:, None] * (1.0 - span) + torch.maximum(t0_hi, t0 + 1e-30)[:, None] * span
     t1, _ = _pick_edge_rows(a, k, fine.contiguous())
     return torch.maximum(t0, t1)
+
+
+def topk_threshold(x, k: int, nbins: int = NBINS):
+    """The one-vector form: x (M,) -> 0-d threshold t with #{|x| >= t} >= k.
+    (Where every |x| is 0 this gives t = 0; the reference's log edges are
+    NaN there.)"""
+    return topk_threshold_rows(x.reshape(1, -1), k, nbins)[0]
+
+
+def threshold_mask_ref(x, threshold):
+    """Plain twin of the mask kernel (``kernels/ref.py threshold_mask_ref``):
+    (x where |x| >= threshold else 0, the bool mask)."""
+    keep = x.to(torch.float32).abs() >= threshold
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device)), keep
+
+
+def threshold_mask(x, threshold):
+    """x (M,) fp32, threshold a float or a one-element fp32 tensor ->
+    (values (M,) fp32, mask (M,) bool)."""
+    if x.device.type == "cpu":
+        return threshold_mask_ref(x, threshold)
+    if x.device.type != "cuda":
+        raise ValueError(f"threshold_mask: unsupported device {x.device}")
+    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError("threshold_mask: x must be a contiguous (M,) float32 tensor")
+    if isinstance(threshold, torch.Tensor):
+        if threshold.numel() != 1 or threshold.dtype != torch.float32 or threshold.device != x.device:
+            raise ValueError("threshold_mask: threshold must be one float32 on x's device")
+        t = threshold.reshape(1).contiguous()
+    else:
+        t = torch.full((1,), float(threshold), dtype=torch.float32, device=x.device)
+    vals = torch.empty_like(x)
+    mask = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _entry("threshold_mask_f32")(
+            x.data_ptr(), x.shape[0], t.data_ptr(), vals.data_ptr(), mask.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"threshold_mask: kernel launch failed with CUDA error {err}")
+    threshold_mask.launches += 1
+    return vals, mask
+
+
+threshold_mask.launches = 0  # kernel launches since the last reset
+
+
+def topk_mask_approx(x, k: int):
+    """Histogram-threshold approximate top-k of x (M,): (values, mask,
+    threshold), as ``kernels/ops.py topk_mask_approx`` returns them."""
+    t = topk_threshold(x, k)
+    vals, mask = threshold_mask(x, t)
+    return vals, mask, t

@@ -21,9 +21,13 @@ def tree_leaves(tree) -> List[torch.Tensor]:
 
 
 def tree_map(fn, tree, *rest):
-    """Apply ``fn`` leafwise over nested dicts of the same structure."""
+    """Apply ``fn`` leafwise over nested dicts, tuples and lists of the
+    same structure (an empty tuple, an optimizer state without leaves,
+    maps to itself)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
     return fn(tree, *rest)
 
 

@@ -250,7 +250,8 @@ def _leaves(tree):
 @pytest.mark.parametrize("knob", [
     dict(semantics="local"), dict(semantics="async"), dict(sharing="randomk"),
     dict(sharing="randomk", randk_sampler="strided"), dict(sharing="int8"), dict(sharing="quant"),
-    dict(secure=True), dict(participation=0.5), dict(churn_machines=2),
+    dict(secure=True, faults=object()), dict(sharing="topk", participation=0.5),
+    dict(sharing="choco", participation=0.5),
     dict(faults=object()), dict(shard_devices=2), dict(cohort_capacity=4),
     dict(backend="processes"), dict(topology="dynamic"), dict(batch_keying="node"),
 ])
@@ -267,12 +268,26 @@ def test_validate_raises_not_implemented(knob):
     dict(sharing="topk", payload="banana"), dict(sharing="choco", randk_sampler="strided"),
     dict(secure=True, payload="on"), dict(secure=True, payload_quant=True),
     dict(secure=True, sharing="randomk", randk_sampler="strided"),
+    dict(secure=True, topology="dynamic"), dict(secure=True, participation=0.5),
+    dict(secure=True, churn_machines=2), dict(secure_recovery=True, participation=0.5),
 ])
 def test_validate_applies_the_jax_rules(knob):
     with pytest.raises(ValueError):
         JDLConfig(**knob).validate()
     with pytest.raises(ValueError):
         DLConfig(**knob).validate()
+
+
+@pytest.mark.parametrize("knob", [
+    dict(secure=True), dict(secure=True, secure_recovery=True),
+    dict(secure=True, participation=0.5, secure_recovery=True),
+    dict(secure=True, churn_machines=3, secure_recovery=True, mixing="dense"),
+    dict(participation=0.5), dict(participation=0.5, churn_machines=2),
+    dict(sharing="topk", churn_machines=2),
+])
+def test_validate_accepts_the_ported_secure_and_churn_knobs(knob):
+    assert JDLConfig(**knob).validate() is not None
+    assert DLConfig(**knob).validate() is not None
 
 
 def test_unknown_sharing_is_a_value_error():

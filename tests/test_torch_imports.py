@@ -1,7 +1,11 @@
 """The port stands alone: no file of ``src/repro_torch/`` and not
 ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (the
-module name ``repro`` itself; ``repro_torch`` is the port)."""
+module name ``repro`` itself; ``repro_torch`` is the port), and importing
+its modules builds no kernel."""
 import ast
+import os
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -28,3 +32,32 @@ def test_no_jax_or_reference_import(path):
 def test_the_check_sees_the_port():
     assert len(FILES) > 10
     assert any(m.startswith("repro_torch") for m in _imported(ROOT / "chip_smoke.py"))
+
+
+SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.kernels.secure_mask",
+                 "repro_torch.kernels.sparsify", "repro_torch.core.steps",
+                 "repro_torch.core.scheduler")
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_module_is_covered_and_builds_nothing_at_import(module):
+    """Each module of the slice is among the files checked above, and a
+    fresh interpreter imports it with the kernel builder disabled, loads no
+    ``jax`` or ``repro`` module on the way, and creates no build output."""
+    path = ROOT / "src" / (module.replace(".", "/") + ".py")
+    assert path in FILES
+    code = (
+        "import sys; import repro_torch.kernels.build as b\n"
+        "def refuse(*a, **k): raise AssertionError('a kernel was built at import')\n"
+        "b.build = refuse\n"
+        f"import {module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
+        "assert not bad, bad\n"
+    )
+    before = set(b.name for b in (ROOT / "build").glob("**/*")) if (ROOT / "build").exists() else set()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    after = set(b.name for b in (ROOT / "build").glob("**/*")) if (ROOT / "build").exists() else set()
+    assert after == before

@@ -9,16 +9,22 @@ Tolerances: the gather merge fp32 1e-5 and bf16 1e-2 (both accumulate in
 fp32; the kernel uses fused multiply-adds, the twin separate ones); int8
 codes, scales and histogram counts bitwise (a NaN row included); the payload merge 1e-5 (the
 twin adds in the kernel's order, through another scatter), and two of its
-launches bitwise equal.
+launches bitwise equal; the secure masks bitwise (x = 0, one key, sign +1)
+and masked messages within 1e-6 (the kernels round as the twins do, with
+no fused multiply-add, so they are expected bitwise); the threshold mask
+bitwise.
 """
 import pytest
 import torch
 
+from repro_torch import prng
+from repro_torch.core import secure as tsecure
 from repro_torch.core import sharing as tshare
 from repro_torch.core import topology as ttop
 from repro_torch.kernels import gossip_mix as gm
 from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import scatter_gossip as sg
+from repro_torch.kernels import secure_mask as sm
 from repro_torch.kernels import sparsify as tsp
 
 
@@ -136,3 +142,110 @@ def test_hist_selection_on_gpu_keeps_k_largest_by_threshold():
     assert (kept >= t[:, None]).all()
     assert (idx.diff(dim=1) > 0).all()  # the first k survivors, in index order
     torch.testing.assert_close(idx.cpu(), tshare._topk_idx(a.cpu(), k, "hist"), rtol=0, atol=0)
+
+
+def _words(g, shape, dev):
+    return torch.randint(0, 1 << 32, shape + (2,), generator=g, device=dev, dtype=torch.int64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,M", [(7, 1, 1), (5, 1, 1000), (3, 1, 70_001), (2, 1, 4_097)])
+def test_keyed_mask_bitwise_on_gpu(B, K, M):
+    """x = 0, one key, sign +1: the kernel writes the mask itself, bitwise
+    the counter-layout bits mapped by the twin, odd and even M."""
+    dev = _card()
+    keys = _words(torch.Generator(device=dev).manual_seed(M), (B, K), dev)
+    before = sm.secure_mask_apply_rows_keyed.launches
+    got = sm.secure_mask_apply_rows_keyed(torch.zeros((B, M), device=dev), None, keys,
+                                          torch.ones((B, K), device=dev), 0.7)
+    torch.cuda.synchronize()
+    assert sm.secure_mask_apply_rows_keyed.launches == before + 1
+    want = sm.mask_bits_to_uniform(prng.counter_bits(keys[:, 0, 0:1], keys[:, 0, 1:2], M), 0.7)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,B,K,M", [(64, 320, 5, 579_594), (9, 37, 6, 1_003), (4, 5, 3, 2)])
+def test_keyed_kernel_matches_twin_on_gpu(R, B, K, M):
+    """Rows read by index (ragged B and M), zero signs skipped, and the
+    in-place form (out=x, rows=None), where every fourth message has no
+    nonzero sign and is left as it is."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(B)
+    x = torch.randn((R, M), generator=g, device=dev)
+    rows = torch.randint(0, R, (B,), generator=g, device=dev, dtype=torch.int32)
+    keys = _words(g, (B, K), dev)
+    signs = torch.randint(-1, 2, (B, K), generator=g, device=dev).float()
+    signs[::4] = 0.0
+    got = sm.secure_mask_apply_rows_keyed(x, rows, keys, signs, 1.0)
+    want = sm.secure_mask_apply_rows_keyed_ref(x, rows, keys, signs, 1.0)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    back = sm.secure_mask_apply_rows_keyed(got, None, keys, -signs, 1.0, out=got)
+    torch.cuda.synchronize()
+    assert back is got
+    torch.testing.assert_close(got, x[rows.long()], rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,K,M", [(64, 5, 579_594), (37, 4, 1_001)])
+def test_staged_kernel_matches_twin_on_gpu(B, K, M):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn((B, M), generator=g, device=dev)
+    bits = torch.randint(-(1 << 31), 1 << 31, (B, K, M), generator=g, device=dev,
+                         dtype=torch.int32)
+    signs = torch.randint(-1, 2, (B, K), generator=g, device=dev).float()
+    before = sm.secure_mask_apply_rows.launches
+    got = sm.secure_mask_apply_nodes(x, bits, signs, 0.9)
+    torch.cuda.synchronize()
+    assert sm.secure_mask_apply_rows.launches == before + 1
+    torch.testing.assert_close(got, sm.secure_mask_apply_rows_ref(x, None, bits, signs, 0.9),
+                               rtol=0, atol=1e-6)
+    flat = sm.secure_mask_apply(x[0], bits[0], signs[0], 0.9)
+    torch.testing.assert_close(flat, got[0], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_secure_round_on_gpu_launches_the_keyed_kernel_and_cancels():
+    """The card's secure round with recovery: two keyed launches and one
+    gather merge, the churn-reweighted plain aggregate on the live nodes,
+    the CPU's round."""
+    dev = _card()
+    n, p = 24, 3_001
+    graph = ttop.Graph.regular_circulant(n, 4)
+    topo = ttop.SparseTopology.from_graph(graph)
+    act = (torch.arange(n) % 5 != 2).float()
+    X = torch.randn((n, p), generator=torch.Generator().manual_seed(0))
+    s = tsecure.SecureAggregation(graph.adj, recovery=True)
+    key = prng.key(5)
+    Wm = tshare.participation_reweight_sparse(topo.to(dev), act.to(dev))
+    before = (sm.secure_mask_apply_rows_keyed.launches, gm.gossip_mix_rows.launches)
+    got, _, _ = s.round(X.to(dev), Wm, (), key, 4.0, rnd=3, act=act.to(dev))
+    torch.cuda.synchronize()
+    assert (sm.secure_mask_apply_rows_keyed.launches,
+            gm.gossip_mix_rows.launches) == (before[0] + 2, before[1] + 1)
+    live = act > 0
+    plain = gm.gossip_mix_rows(X.to(dev), *Wm.merge_tables())
+    torch.testing.assert_close(got[live.to(dev)], plain[live.to(dev)], rtol=0, atol=1e-5)
+    cpu, _, _ = s.round(X, tshare.participation_reweight_sparse(topo.to("cpu"), act), (), key,
+                        4.0, rnd=3, act=act)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [579_594, 1, 1_000_003])
+def test_threshold_mask_bitwise_on_gpu(M):
+    dev = _card()
+    x = torch.randn(M, generator=torch.Generator(device=dev).manual_seed(M), device=dev)
+    k = max(1, M // 10)
+    t = tsp.topk_threshold(x, k)
+    x[M // 2] = float("nan")  # dropped by the mask
+    before = tsp.threshold_mask.launches
+    vals, mask = tsp.threshold_mask(x, t)
+    torch.cuda.synchronize()
+    assert tsp.threshold_mask.launches == before + 1
+    wv, wm = tsp.threshold_mask_ref(x, t)
+    assert torch.equal(mask, wm) and torch.equal(vals, wv) and not mask[M // 2]
+    y = torch.randn(M, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    _, m2, t2 = tsp.topk_mask_approx(y, k)
+    assert int(m2.sum()) >= k and torch.equal(t2, tsp.topk_threshold(y, k))

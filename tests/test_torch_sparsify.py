@@ -116,3 +116,44 @@ def test_cpu_tensor_takes_the_twin_and_leaves_the_counter():
     assert tsp.abs_histogram_rows.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         tsp.abs_histogram_rows(torch.ones((2, 4), device="meta"), torch.ones((2, 3), device="meta"))
+
+
+@pytest.mark.parametrize("M", [1, 1000, 65536 + 7])
+def test_threshold_mask_bitwise_on_shared_thresholds(M):
+    """Values and mask equal the Pallas kernel's (interpret mode) and the
+    oracle's for the same threshold; a NaN is dropped."""
+    x = _rows(1, M, M + 1)[0]
+    if M > 2:
+        x[M // 2] = np.nan
+    for t in (0.0, float(np.median(np.abs(x[~np.isnan(x)]))), 1e30):
+        vals, mask = tsp.threshold_mask(torch.tensor(x), t)
+        assert vals.dtype == torch.float32 and mask.dtype == torch.bool
+        for want in (jops.threshold_mask, jref.threshold_mask_ref):
+            wv, wm = want(jnp.asarray(x), np.float32(t))
+            np.testing.assert_array_equal(vals.numpy(), np.asarray(wv))
+            np.testing.assert_array_equal(mask.numpy(), np.asarray(wm))
+
+
+@pytest.mark.parametrize("M,k", [(20_000, 200), (5000, 1), (70_001, 7000)])
+def test_topk_mask_approx_matches_jax(M, k):
+    """The one-vector threshold agrees with JAX's to the tolerance of the
+    rows form (module docstring); values and mask are bitwise JAX's
+    threshold_mask on the port's threshold, and keep at least k."""
+    x = _rows(1, M, k)[0]
+    vals, mask, t = tsp.topk_mask_approx(torch.tensor(x), k)
+    _, _, jt = jops.topk_mask_approx(jnp.asarray(x), k)
+    lo = max(np.abs(x).max() * np.float32(1e-7), np.float32(1e-30))
+    rtol = np.spacing(np.abs(np.log(lo))) + 8 * 2.0 ** -24
+    assert t.shape == () and abs(float(t) - float(jt)) <= rtol * float(jt)
+    wv, wm = jops.threshold_mask(jnp.asarray(x), t.numpy())
+    np.testing.assert_array_equal(vals.numpy(), np.asarray(wv))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(wm))
+    assert int(mask.sum()) >= k
+
+
+def test_threshold_mask_cpu_takes_the_twin():
+    before = tsp.threshold_mask.launches
+    tsp.topk_mask_approx(torch.randn(300), 30)
+    assert tsp.threshold_mask.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsp.threshold_mask(torch.ones(4, device="meta"), 0.5)
