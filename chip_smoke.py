@@ -29,7 +29,22 @@ Phases (any failure raises and the exit code is non-zero):
 9. reference: the full-sharing and the secure engines on a small input, on
    the card and on the CPU from the same parameters, must agree; for TopK
    (int8) and CHOCO-SGD with the histogram selector, every share step of
-   the card's run, replayed on the CPU from the same inputs, must agree.
+   the card's run, replayed on the CPU from the same inputs, must agree;
+10. lm-kernels: the sliding-window attention and SSD chunk kernels against
+   their twins at the two language-model paths' shapes and a few others,
+   with ``scaled_dot_product_attention`` under the same band mask as the
+   attention kernel's yardstick;
+11. serve: SmolLM-135M (the published config: 30 layers, bf16, window 4096)
+   served through ``repro_torch.serving.ServingEngine.generate`` with the
+   sliding-window kernel, 8 requests of 4096-token prompts and 32 greedy new
+   tokens: 30 kernel launches per generate, all in the prefill, 0 in decode;
+12. forward: the Mamba2-370M teacher-forced forward and loss (the published
+   config: 48 layers, bf16, chunk 256) on 4 x 2048 tokens through
+   ``repro_torch.models.api.loss_fn`` with the SSD chunk kernel: 48 launches;
+13. lm-reference: both models in fp32 at full width and 2 layers, the card
+   against the CPU from the same parameters (SmolLM prefill logits and
+   greedy ids, Mamba2 forward logits), and Mamba2's forward against its
+   token-by-token decode on the card.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -49,6 +64,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor-core rate
 INT32_LANES_PER_SM = 64    # INT32 operations per SM and clock (Hopper white paper)
 # integer-ALU instructions per Threefry-2x32 call of the keyed secure-mask
 # kernel (csrc/secure_mask.cu): 20 funnel-shift rotates, 20 xors and the
@@ -59,7 +75,8 @@ INT32_LANES_PER_SM = 64    # INT32 operations per SM and clock (Hopper white pap
 THREEFRY_INT_OPS = 20 + 20 + 2
 MAIN_N, MAIN_DEG, MAIN_P = 1024, 5, 579_594  # GN-LeNet width 32
 MAIN_K = int(0.1 * MAIN_P)  # the TopK payload at a 10% budget: 57,959
-LIBS = ("gossip_mix", "scatter_gossip", "sparsify", "quantize", "secure_mask")
+LIBS = ("gossip_mix", "scatter_gossip", "sparsify", "quantize", "secure_mask",
+        "swa_attention", "ssd_chunk")
 SECURE_CFG = dict(secure=True, participation=0.9, secure_recovery=True)
 CMP_ELEMS = 1 << 28  # elements per step of a kernel-twin comparison
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
@@ -88,10 +105,11 @@ def merge_bound_ms(n, k, p, item, x_rows):
     return bound_ms(x_rows * p * item + n * k * 8 + n * p * item, 2 * k * n * p)
 
 
-def bound_ms(nbytes, ops):
-    """(least ms, what bounds it): bytes over the memory rate against fp32
-    operations over the peak rate, the larger of the two."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+def bound_ms(nbytes, ops, rate=FP32_FLOPS):
+    """(least ms, what bounds it): bytes over the memory rate against
+    operations over the peak rate for their type (fp32 unless named), the
+    larger of the two."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -669,12 +687,15 @@ def kernel_wrappers():
     from repro_torch.kernels import scatter_gossip as sg
     from repro_torch.kernels import secure_mask as sm
     from repro_torch.kernels import sparsify as sp
+    from repro_torch.kernels import ssd_chunk as ssd
+    from repro_torch.kernels import swa_attention as swa
 
     return {"abs_histogram_rows": sp.abs_histogram_rows, "quantize": q.quantize,
             "dequantize": q.dequantize, "payload_mix_rows": sg.payload_mix_rows,
             "gossip_mix_rows": gm.gossip_mix_rows, "threshold_mask": sp.threshold_mask,
             "secure_mask_apply_rows_keyed": sm.secure_mask_apply_rows_keyed,
-            "secure_mask_apply_rows": sm.secure_mask_apply_rows}
+            "secure_mask_apply_rows": sm.secure_mask_apply_rows,
+            "swa_attention_gqa": swa.swa_attention_gqa, "ssd_chunk": ssd.ssd_chunk}
 
 
 def read_launches():
@@ -734,9 +755,15 @@ def time_share_step(eng, path, reps=3):
 
 def phase_profile(eng, path):
     """One more round of the engine's path (``path`` names it in the log)
-    under torch.profiler: the device's
-    busy time (union of its kernel and copy intervals) against the round's
-    wall time, and the device time by kernel."""
+    under torch.profiler."""
+    profile_call(f"one {path}-path round",
+                 lambda: eng.scheduler.run_span(eng.dl.rounds, 1))
+
+
+def profile_call(label, fn):
+    """``fn()`` under torch.profiler: the device's busy time (union of its
+    kernel and copy intervals) against the call's wall time, and the device
+    time by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -744,7 +771,7 @@ def phase_profile(eng, path):
     torch.cuda.synchronize()
     t = time.time()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng.scheduler.run_span(eng.dl.rounds, 1)
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.time() - t) * 1e3
     bookkeeping = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
@@ -764,7 +791,7 @@ def phase_profile(eng, path):
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
     sum_ms = sum(tot for tot, _ in by_name.values()) / 1e3
-    print(f"[profile] one {path}-path round under the profiler: wall {wall_ms:.3f} ms, "
+    print(f"[profile] {label} under the profiler: wall {wall_ms:.3f} ms, "
           f"device busy (union of intervals) {busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / 1e3 / wall_ms:.4f}; sum of device times {sum_ms:.3f} ms",
           flush=True)
@@ -846,6 +873,267 @@ def phase_reference():
             raise AssertionError(f"{len(rec.log)} share steps recorded, want 2")
 
 
+SERVE_B, SERVE_S, SERVE_NEW = 8, 4096, 32   # path A: requests, prompt tokens, new tokens
+FWD_B, FWD_S = 4, 2048                      # path B: sequences x tokens (8 chunks of 256)
+SWA_SHAPES = (  # (B, S, H, Hkv, D, window, dtype)
+    ("prefill", (SERVE_B, SERVE_S, 9, 3, 64, 4096, "bfloat16")),
+    ("window cuts", (1, 8192, 9, 3, 64, 4096, "bfloat16")),
+    ("fp32", (2, 2048, 9, 3, 64, 1024, "float32")),
+    ("ragged", (3, 200, 6, 2, 40, 100, "float32")))
+SSD_SHAPES = ((32, 256, 32, 64, 128), (3, 16, 2, 8, 8))  # (G, L, H, P, N)
+
+
+def swa_bound(b, s, h, hkv, d, window, item):
+    """q, k, v read once and out written once (bytes) against 4·D flops per
+    in-window (query, key) pair (q·k and p·v), at the bf16 tensor-core rate
+    for bf16 inputs and the fp32 rate for fp32; the larger of the two."""
+    w = min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w   # sum over queries of min(i + 1, window)
+    return bound_ms(b * s * (2 * h + 2 * hkv) * d * item, 4 * d * pairs * b * h,
+                    BF16_FLOPS if item == 2 else FP32_FLOPS)
+
+
+def ssd_bound(g, l, h, p, n):
+    """xdt, B, C and cum read once, y, state and decay written once (fp32
+    bytes), against two flops per multiply-add of C·Bᵀ once per chunk cell
+    over j <= i, the causal half of scores @ xdt per head and the state
+    product per head, at the fp32 rate; the larger of the two."""
+    tri = l * (l + 1) // 2
+    nbytes = 4 * (2 * g * l * h * p + 2 * g * l * n + g * l * h + g * h * n * p + g * h)
+    return bound_ms(nbytes, 2 * (g * tri * n + g * h * tri * p + g * h * l * n * p))
+
+
+def phase_lm_kernels():
+    """The two language-model kernels against their twins: the
+    sliding-window attention at the SmolLM-135M prefill's shape (8 x 4096,
+    9 query over 3 KV heads, head dim 64, window 4096, bf16), where the
+    window cuts (S 8192), in fp32 and at a small ragged shape, with
+    ``scaled_dot_product_attention`` under the same band mask as its
+    yardstick; the SSD chunk step at the Mamba2-370M forward's shape (G 32
+    chunk cells, L 256, H 32, P 64, N 128) and at the smoke chunk's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ssd_chunk as ssd
+    from repro_torch.kernels import swa_attention as swa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {}
+    for label, (b, s, h, hkv, d, w, dt) in SWA_SHAPES:
+        dt = getattr(torch, dt)
+        q = torch.randn((b, s, h, d), generator=gen, device=dev).to(dt)
+        k, v = torch.randn((2, b, s, hkv, d), generator=gen, device=dev).to(dt)
+        pos = torch.arange(s, device=dev)
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rec = check(
+            f"swa_attention_gqa {label} B={b} S={s} H={h} Hkv={hkv} D={d} window={w} "
+            f"{str(dt).split('.')[-1]}",
+            lambda: swa.swa_attention_gqa(q, k, v, w),
+            lambda: swa.swa_attention_gqa_ref(q, k, v, w),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True),
+            swa_bound(b, s, h, hkv, d, w, q.element_size()),
+            tol=1e-2 if dt == torch.bfloat16 else 1e-4,
+            library_covers="scaled_dot_product_attention(enable_gqa) with the band as a boolean "
+                           "mask, on (B, H, S, D) views")
+        out.setdefault("swa_attention_gqa", rec)
+        del q, k, v, qt, kt, vt, band
+        torch.cuda.empty_cache()
+    for g, l, h, p, n in SSD_SHAPES:
+        xdt = torch.randn((g, l, h, p), generator=gen, device=dev) * 0.2
+        bc, cc = torch.randn((2, g, l, n), generator=gen, device=dev) * 0.4
+        cum = -torch.cumsum(torch.rand((g, l, h), generator=gen, device=dev) * 0.5, dim=1)
+        rec = check(
+            f"ssd_chunk G={g} L={l} H={h} P={p} N={n}",
+            lambda: ssd.ssd_chunk(xdt, bc, cc, cum), lambda: ssd.ssd_chunk_ref(xdt, bc, cc, cum),
+            None, ssd_bound(g, l, h, p, n), tol=1e-4,
+            library_covers="none: no one PyTorch call computes the masked, decay-weighted "
+                           "chunk product and the chunk state")
+        out.setdefault("ssd_chunk", rec)
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve():
+    """Path A: SmolLM-135M at its published config (bf16, window 4096) with
+    the sliding-window kernel, through ``ServingEngine.generate``: 8
+    requests of 4096-token prompts and 32 greedy new tokens (the KV ring
+    buffer wraps at position 4096).  The launches of one generate are read
+    with every count set to 0 just before; then the same requests split at
+    the prefill give the prefill's time (to first token) and launches and
+    the decode's time per token and launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.utils.pytree import tree_size
+
+    dev = torch.device("cuda")
+    cfg = get_config("smollm-135m").replace(attn_impl="pallas_swa")
+    t = time.time()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = tree_size(params)
+    eng = ServingEngine(cfg, ServeConfig(batch=SERVE_B, max_len=SERVE_S + SERVE_NEW), params, dev)
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (SERVE_B, SERVE_S)), device=dev)
+    eng.generate(prompts, max_new=2)  # warm-up
+    torch.cuda.synchronize()
+    print(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+          f"parameters ({cfg.dtype}), window {cfg.sliding_window}; set up and warmed in "
+          f"{time.time() - t:.2f} s", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    ids = eng.generate(prompts, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[serve] generate: launches={launches}", flush=True)
+    want = {**{k: 0 for k in launches}, "swa_attention_gqa": cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"serve path launches {launches}, want {want}")
+
+    reset_launches()
+    t0 = time.time()
+    logits, cache = eng.prefill(prompts)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    pre = read_launches()
+    reset_launches()
+    ids2 = eng.decode(logits, cache, SERVE_S, SERVE_NEW)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    dec = read_launches()
+    if pre["swa_attention_gqa"] != cfg.n_layers or any(dec.values()):
+        raise AssertionError(f"prefill launches {pre}, decode launches {dec}")
+    if not (tuple(ids.shape) == (SERVE_B, SERVE_NEW) and int(ids.min()) >= 0
+            and int(ids.max()) < cfg.vocab and bool(torch.isfinite(logits).all())):
+        raise AssertionError("serve path: ids out of range or non-finite logits")
+    profile_call("one serve prefill (8 x 4096 tokens)", lambda: eng.prefill(prompts))
+    profile_call("one serve decode step", lambda: eng.decode(logits, cache, SERVE_S + SERVE_NEW, 1))
+    prefill_s, decode_s = t1 - t0, t2 - t1
+    flops = 2 * n_params * SERVE_B * SERVE_S
+    print(f"[serve] prefill (time to first token) {prefill_s * 1e3} ms for {SERVE_B}x{SERVE_S} "
+          f"tokens: model FLOPs 2*N*tokens = {flops:.6g}, {flops / prefill_s / BF16_FLOPS:.4f} "
+          f"of the bf16 peak; decode {decode_s * 1e3 / SERVE_NEW} ms per step, "
+          f"{SERVE_B * SERVE_NEW / decode_s} tokens/s; peak max_memory_allocated={peak} B; "
+          f"split run ids equal to generate's: {bool(torch.equal(ids, ids2))}", flush=True)
+    return launches
+
+
+def phase_forward():
+    """Path B: the Mamba2-370M teacher-forced forward and loss at its
+    published config (bf16, chunk 256) with the SSD chunk kernel, on 4 x
+    2048 tokens through ``loss_fn``, with the launch counts read around one
+    call; then the forward's time."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import forward, init_params, loss_fn
+    from repro_torch.utils.pytree import tree_size
+
+    dev = torch.device("cuda")
+    cfg = get_config("mamba2-370m").replace(ssm_impl="pallas")
+    t = time.time()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(1))
+    n_params = tree_size(params)
+    toks = torch.as_tensor(
+        np.random.default_rng(1).integers(0, cfg.vocab, (FWD_B, FWD_S + 1)), device=dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    loss_fn(params, cfg, batch)  # warm-up
+    torch.cuda.synchronize()
+    print(f"[forward] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+          f"parameters ({cfg.dtype}), chunk {cfg.ssm_chunk}; set up and warmed in "
+          f"{time.time() - t:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    loss = loss_fn(params, cfg, batch)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[forward] loss_fn: launches={launches}; loss={float(loss)}", flush=True)
+    want = {**{k: 0 for k in launches}, "ssd_chunk": cfg.n_layers}
+    if launches != want:
+        raise AssertionError(f"forward path launches {launches}, want {want}")
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"non-finite loss {float(loss)}")
+    fwd_ms = time_ms(lambda: forward(params, cfg, batch), iters=3, warmup=0)
+    profile_call("one forward (4 x 2048 tokens)", lambda: forward(params, cfg, batch))
+    tokens = FWD_B * FWD_S
+    flops = 2 * n_params * tokens
+    print(f"[forward] forward {fwd_ms} ms for {FWD_B}x{FWD_S} tokens: "
+          f"{tokens / fwd_ms * 1e3} tokens/s; model FLOPs 2*N*tokens = {flops:.6g}, "
+          f"{flops / (fwd_ms * 1e-3) / BF16_FLOPS:.4f} of the bf16 peak; "
+          f"peak max_memory_allocated={peak} B (loss_fn)", flush=True)
+    return launches
+
+
+def phase_lm_reference():
+    """Both models in fp32 at full width and 2 layers, from one set of
+    parameters on the card and on the CPU (plain twins): SmolLM-135M served
+    with a 256-token window (the kernel route; a prefill may not outgrow the
+    window's ring buffer, so the window is the prompt's length and the ring
+    wraps in decode) on 2 prompts of 256 tokens, prefill logits within 1e-4
+    and 8 greedy ids equal; Mamba2-370M's
+    forward on 2 x 512 tokens, logits within 1e-3 (fp32 SSD sums in other
+    orders, 2 layers of width 2048); and on the card Mamba2's forward
+    against its token-by-token decode at every position, within 2e-3 as
+    ``tests/test_decode_consistency.py`` holds the reference.  fp32 matrix
+    products stay full fp32 (no TF32)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import decode_step, forward, init_cache, init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.utils.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    cfg = get_config("smollm-135m").replace(n_layers=2, dtype="float32", sliding_window=256,
+                                            attn_impl="pallas_swa")
+    params = init_params(cfg, torch.Generator().manual_seed(2))
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (2, 256))
+    res = {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        eng = ServingEngine(cfg, ServeConfig(batch=2, max_len=256 + 8),
+                            tree_map(lambda a: a.to(d), params), d)
+        reset_launches()
+        logits, cache = eng.prefill(torch.as_tensor(prompts, device=d))
+        ids = eng.decode(logits, cache, 256, 8)
+        res[where] = (logits.cpu(), ids.cpu(), read_launches()["swa_attention_gqa"])
+    diff = float((res["card"][0] - res["cpu"][0]).abs().max())
+    print(f"[lm-reference] smollm-135m fp32, 2 layers, window 256, 2x256 prompts: prefill "
+          f"logits max |card - cpu| = {diff} (scale {float(res['cpu'][0].abs().max())}); "
+          f"greedy ids equal: {bool(torch.equal(res['card'][1], res['cpu'][1]))}; card kernel "
+          f"launches {res['card'][2]}", flush=True)
+    if not (diff <= 1e-4 and torch.equal(res["card"][1], res["cpu"][1])
+            and res["card"][2] == cfg.n_layers):
+        raise AssertionError("smollm-135m: card and CPU disagree, or the kernel was not taken")
+
+    cfg = get_config("mamba2-370m").replace(n_layers=2, dtype="float32", ssm_impl="pallas")
+    params = init_params(cfg, torch.Generator().manual_seed(3))
+    gparams = tree_map(lambda a: a.to(dev), params)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (2, 512)))
+    reset_launches()
+    lg = forward(gparams, cfg, {"tokens": toks.to(dev)})[0]
+    launched = read_launches()["ssd_chunk"]
+    lc = forward(params, cfg, {"tokens": toks})[0]
+    diff = float((lg.cpu() - lc).abs().max())
+    cache = init_cache(cfg, 2, 512, device=dev)
+    worst = 0.0
+    for t in range(512):
+        step, cache = decode_step(gparams, cfg, cache, toks[:, t:t + 1].to(dev), t)
+        err = (step[:, 0] - lg[:, t]).abs() - 2e-3 * lg[:, t].abs()
+        worst = max(worst, float(err.max()))
+    print(f"[lm-reference] mamba2-370m fp32, 2 layers, 2x512 tokens: forward logits max "
+          f"|card - cpu| = {diff} (scale {float(lc.abs().max())}), card kernel launches "
+          f"{launched}; decode vs forward on the card: max(|d - f| - 2e-3 |f|) = {worst}",
+          flush=True)
+    if not (diff <= 1e-3 and worst <= 2e-3 and launched == cfg.n_layers):
+        raise AssertionError("mamba2-370m: card and CPU, or decode and forward, disagree")
+
+
 def release():
     """Free a dropped engine before the next path: an engine and its
     scheduler refer to each other, so only the collector frees them, and a
@@ -864,6 +1152,7 @@ def main():
         return 2
     from repro_torch.kernels.build import build
 
+    t_start = time.time()
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -901,8 +1190,17 @@ def main():
     del eng
     release()
     phase_reference()
+    release()
+    checks.update(phase_lm_kernels())
+    serve_launches = phase_serve()
+    release()
+    forward_launches = phase_forward()
+    release()
+    phase_lm_reference()
 
     checks["gossip_mix_rows"] = checks.pop("main")
+    launches["swa_attention_gqa"] = serve_launches["swa_attention_gqa"]
+    launches["ssd_chunk"] = forward_launches["ssd_chunk"]
     launches.update({k: v for k, v in topk_launches.items()
                      if k in ("abs_histogram_rows", "quantize", "dequantize", "payload_mix_rows")})
     launches["secure_mask_apply_rows_keyed"] = secure_launches["secure_mask_apply_rows_keyed"]
@@ -916,6 +1214,8 @@ def main():
         "threshold_mask": ("sparsify.cu", "src/repro/kernels/sparsify.py:76"),
         "secure_mask_apply_rows_keyed": ("secure_mask.cu", "src/repro/kernels/secure_mask.py:161"),
         "secure_mask_apply_rows": ("secure_mask.cu", "src/repro/kernels/secure_mask.py:77"),
+        "swa_attention_gqa": ("swa_attention.cu", "src/repro/kernels/swa_attention.py:67"),
+        "ssd_chunk": ("ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:54"),
     }
     kernels = []
     for kernel, (src, replaces) in sources.items():
@@ -928,6 +1228,7 @@ def main():
             "library_ms": c["library_ms"],
             **({"library_covers": c["library_covers"]} if "library_covers" in c else {}),
         })
+    print(f"[done] all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

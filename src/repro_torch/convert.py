@@ -7,11 +7,23 @@ import numpy as np
 import torch
 
 
+def _leaf(a, device) -> torch.Tensor:
+    """One array, bitwise, with its own dtype.  numpy has no bfloat16: the
+    JAX package's bf16 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which
+    torch cannot read, so their 16-bit words travel as int16 and are
+    reinterpreted as torch.bfloat16."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        words = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).view(np.int16).copy())
+        return words.view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
 def params_from_jax(tree, device="cpu") -> Dict:
-    """A (node-stacked) parameter tree of numpy arrays, as the JAX package
-    holds it, as the same nested dict of tensors on ``device``.  Layouts
-    are kept (HWIO conv weights, (in, out) dense weights), values copied
-    bitwise."""
+    """A parameter tree of (numpy or JAX) arrays, as the JAX package holds
+    it, as the same nested dict of tensors on ``device``.  Layouts are kept
+    (HWIO conv weights, (in, out) dense weights, stacked layer axes) and
+    every leaf is copied bitwise with its own dtype (fp32, bf16, integers)."""
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return torch.as_tensor(np.array(tree), device=device)
+    return _leaf(tree, device)

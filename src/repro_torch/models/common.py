@@ -1,4 +1,4 @@
-"""Shared layer initialisation."""
+"""Shared layers: inits, RMSNorm, RoPE, SwiGLU MLP."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -15,3 +15,48 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32,
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return (t * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32) -> torch.Tensor:
+    """Normal(0, 0.02) embedding table drawn from ``gen`` on its device."""
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    t.normal_(0.0, 1.0, generator=gen)
+    return (t * 0.02).to(dtype)
+
+
+def rms_norm(x, weight, eps: float = 1e-5):
+    """RMSNorm in fp32, cast back to x's dtype."""
+    dt = x.dtype
+    x = x.float()
+    x = x * torch.rsqrt(x.square().mean(-1, keepdim=True) + eps)
+    return (x * weight.float()).to(dt)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), fp32."""
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+                            / head_dim))
+
+
+def apply_rope(x, positions, theta: float):
+    """Rotate pairs (first half against second half). x: (..., S, H, D);
+    positions: broadcastable to (..., S)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].float() * inv                       # (..., S, d/2)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32):
+    return {
+        "w_gate": dense_init(gen, (d_model, d_ff), dtype),
+        "w_up": dense_init(gen, (d_model, d_ff), dtype),
+        "w_down": dense_init(gen, (d_ff, d_model), dtype),
+    }
+
+
+def mlp_apply(p, x):
+    """SwiGLU: silu(x W_gate) * (x W_up), then W_down."""
+    return (torch.nn.functional.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

@@ -36,7 +36,14 @@ def test_the_check_sees_the_port():
 
 SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.kernels.secure_mask",
                  "repro_torch.kernels.sparsify", "repro_torch.core.steps",
-                 "repro_torch.core.scheduler")
+                 "repro_torch.core.scheduler", "repro_torch.kernels.swa_attention",
+                 "repro_torch.kernels.ssd_chunk", "repro_torch.models.config",
+                 "repro_torch.models.common", "repro_torch.models.attention",
+                 "repro_torch.models.transformer", "repro_torch.models.ssm",
+                 "repro_torch.models.hybrid", "repro_torch.models.api", "repro_torch.convert",
+                 "repro_torch.serving.engine", "repro_torch.configs.smollm_135m",
+                 "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_1_2b",
+                 "repro_torch.serve")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -12,7 +12,10 @@ twin adds in the kernel's order, through another scatter), and two of its
 launches bitwise equal; the secure masks bitwise (x = 0, one key, sign +1)
 and masked messages within 1e-6 (the kernels round as the twins do, with
 no fused multiply-add, so they are expected bitwise); the threshold mask
-bitwise.
+bitwise; the sliding-window attention fp32 1e-4 and bf16 1e-2 (fp32
+softmax in both, other summation orders; bf16 outputs may part by one
+rounding); the SSD chunk step 1e-4 (fp32 sums of up to 256 terms in
+another order).
 """
 import pytest
 import torch
@@ -26,6 +29,8 @@ from repro_torch.kernels import quantize as tq
 from repro_torch.kernels import scatter_gossip as sg
 from repro_torch.kernels import secure_mask as sm
 from repro_torch.kernels import sparsify as tsp
+from repro_torch.kernels import ssd_chunk as tssd
+from repro_torch.kernels import swa_attention as tswa
 
 
 def _card():
@@ -249,3 +254,101 @@ def test_threshold_mask_bitwise_on_gpu(M):
     y = torch.randn(M, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     _, m2, t2 = tsp.topk_mask_approx(y, k)
     assert int(m2.sum()) >= k and torch.equal(t2, tsp.topk_threshold(y, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,Hkv,D,window,dtype", [
+    (8, 4096, 9, 3, 64, 4096, "bfloat16"),   # the SmolLM-135M prefill
+    (1, 8192, 9, 3, 64, 4096, "bfloat16"),   # the window cuts
+    (2, 2048, 9, 3, 64, 1024, "float32"),
+    (3, 200, 6, 2, 40, 100, "float32"),      # ragged S, head dim and window
+    (2, 256, 2, 1, 128, 128, "bfloat16"),
+])
+def test_swa_kernel_matches_twin_on_gpu(B, S, H, Hkv, D, window, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S + D)
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+    kv = torch.randn((2, B, S, Hkv, D), generator=g, device=dev).to(dt)
+    before = tswa.swa_attention_gqa.launches
+    got = tswa.swa_attention_gqa(q, kv[0], kv[1], window)
+    torch.cuda.synchronize()
+    assert tswa.swa_attention_gqa.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 1e-4 if dtype == "float32" else 1e-2
+    torch.testing.assert_close(got.float(), tswa.swa_attention_gqa_ref(q, kv[0], kv[1], window)
+                               .float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_swa_merged_heads_form_on_gpu():
+    """The reference's (BH, S, D) signature equals the GQA form on the
+    repeated heads."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v = torch.randn((3, 6, 384, 64), generator=g, device=dev)
+    got = tswa.swa_attention(q, k, v, 128)
+    heads = lambda t: t.transpose(0, 1)[None]  # (BH, S, D) -> (1, S, BH, D)
+    want = tswa.swa_attention_gqa(heads(q), heads(k), heads(v), 128)
+    torch.testing.assert_close(got, want[0].transpose(0, 1), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,L,H,P,N,strided", [
+    (32, 256, 32, 64, 128, False),   # the Mamba2-370M forward
+    (3, 16, 2, 8, 8, False),         # the smoke chunk
+    (4, 100, 3, 40, 50, True),       # ragged, B and C read through row strides, steep
+])                                   # decay: exp above the diagonal would overflow
+def test_ssd_kernel_matches_twin_on_gpu(G, L, H, P, N, strided):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(L * N)
+    xdt = torch.randn((G, L, H, P), generator=g, device=dev) * 0.2
+    bc = torch.randn((G, L, 2 * N + (3 if strided else 0)), generator=g, device=dev) * 0.4
+    Bc, Cc = bc[..., :N], bc[..., N:2 * N]
+    if not strided:
+        Bc, Cc = Bc.contiguous(), Cc.contiguous()
+    rate = 10.0 if strided else 0.1
+    cum = -torch.cumsum(torch.rand((G, L, H), generator=g, device=dev) * rate, dim=1)
+    before = tssd.ssd_chunk.launches
+    got = tssd.ssd_chunk(xdt, Bc, Cc, cum)
+    torch.cuda.synchronize()
+    assert tssd.ssd_chunk.launches == before + 1
+    for a, b in zip(got, tssd.ssd_chunk_ref(xdt, Bc, Cc, cum)):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_model_routes_launch_the_kernels_on_gpu():
+    """attn_apply under attn_impl="pallas_swa" (S and window multiples of
+    128) launches the attention kernel once, and not at S = 200; ssm_apply
+    under ssm_impl="pallas" launches the SSD kernel once; each agrees with
+    its plain route on the card."""
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import ssm as tssm
+    from repro_torch.models.config import ModelConfig
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(11)
+    cfg = ModelConfig(family="dense", d_model=192, n_heads=6, n_kv_heads=2, d_ff=256,
+                      vocab=64, sliding_window=128, attn_impl="pallas_swa")
+    p = tattn.attn_init(g, cfg)
+    for S, want in ((256, 1), (200, 0)):
+        x = torch.randn((2, S, 192), generator=g, device=dev)
+        pos = torch.arange(S, device=dev)[None].expand(2, S)
+        before = tswa.swa_attention_gqa.launches
+        got, _ = tattn.attn_apply(p, cfg, x, pos)
+        torch.cuda.synchronize()
+        assert tswa.swa_attention_gqa.launches == before + want
+        plain, _ = tattn.attn_apply(p, cfg.replace(attn_impl="naive"), x, pos)
+        torch.testing.assert_close(got, plain, rtol=1e-4, atol=1e-4)
+    scfg = ModelConfig(family="ssm", d_model=128, ssm_state=32, ssm_headdim=32, ssm_chunk=64,
+                       ssm_impl="pallas")
+    sp = tssm.ssm_init(g, scfg)
+    x = torch.randn((2, 256, 128), generator=g, device=dev)
+    before = tssd.ssd_chunk.launches
+    got = tssm.ssm_apply(sp, scfg, x)
+    torch.cuda.synchronize()
+    assert tssd.ssd_chunk.launches == before + 1
+    torch.testing.assert_close(got, tssm.ssm_apply(sp, scfg.replace(ssm_impl="jnp"), x),
+                               rtol=1e-4, atol=1e-4)
