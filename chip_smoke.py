@@ -8,9 +8,11 @@ Phases (any failure raises and the exit code is non-zero):
 2. build: compile every CUDA kernel from ``src/`` with nvcc for sm_90a
    (into ``build/``), one nvcc per source, all started together, timed;
 3. kernels: each kernel against its plain PyTorch twin on the card at the
-   main paths' shapes and a few others, with its time, the twin's, a
-   one-call PyTorch yardstick's where one exists, and the least time the
-   card could take (its bound);
+   main paths' shapes and a few others, with its time (CUDA events around
+   back-to-back calls, the wrapper's host cost included), its device time
+   per call (torch.profiler), the twin's time, a one-call PyTorch
+   yardstick's where one exists, and the least time the card could take
+   (its bound);
 4. main path: ``repro_torch.RoundEngine`` — synchronous D-PSGD with full
    sharing over a 5-regular overlay of 1024 nodes, GN-LeNet at width 32,
    8 rounds — with each kernel's launch count read around that run alone,
@@ -21,8 +23,9 @@ Phases (any failure raises and the exit code is non-zero):
 6. secure kernels: the keyed and staged secure-mask kernels and the
    threshold mask against their twins at the secure path's shapes and
    ragged ones;
-7. entry points: ``topk_mask_approx``, ``secure_mask_apply_nodes`` and
-   ``secure_mask_apply``, each kernel's launches read around that run;
+7. entry points: ``topk_mask_approx``, ``secure_mask_apply_nodes``,
+   ``secure_mask_apply``, ``abs_histogram`` and ``gossip_mix``, each
+   kernel's launches read around that run (and around each flat form);
 8. secure path: the same engine with secure aggregation under churn
    (participation 0.9) with the seed-recovery pass, 8 rounds, launch counts
    (two keyed mask launches and one gather merge per round) and bytes asserted, then one profiled round and the share step alone;
@@ -33,7 +36,8 @@ Phases (any failure raises and the exit code is non-zero):
 10. lm-kernels: the sliding-window attention and SSD chunk kernels against
    their twins at the two language-model paths' shapes and a few others,
    with ``scaled_dot_product_attention`` under the same band mask as the
-   attention kernel's yardstick;
+   attention kernel's yardstick, and with ``is_causal=True`` beside it
+   where the window covers every key (the backend each took is printed);
 11. serve: SmolLM-135M (the published config: 30 layers, bf16, window 4096)
    served through ``repro_torch.serving.ServingEngine.generate`` with the
    sliding-window kernel, 8 requests of 4096-token prompts and 32 greedy new
@@ -46,13 +50,14 @@ Phases (any failure raises and the exit code is non-zero):
    greedy ids, Mamba2 forward logits), and Mamba2's forward against its
    token-by-token decode on the card.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per TPU kernel
+(13); the last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -79,23 +84,32 @@ LIBS = ("gossip_mix", "scatter_gossip", "sparsify", "quantize", "secure_mask",
         "swa_attention", "ssd_chunk")
 SECURE_CFG = dict(secure=True, participation=0.9, secure_recovery=True)
 CMP_ELEMS = 1 << 28  # elements per step of a kernel-twin comparison
+PROFILER_BOOKKEEPING = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
+PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_times' padding
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
               "masks; the plain twin composes some 180 integer ops per pass")
 
 
-def time_ms(fn, iters=10, warmup=2):
-    """Mean device milliseconds per call, from CUDA events."""
+def time_ms(fn, iters=10, warmup=2, min_window_ms=20.0):
+    """Mean device milliseconds per call, from CUDA events around
+    back-to-back calls: ``iters`` calls, or as many more as fill a window
+    of ``min_window_ms`` (ten calls of a few microseconds each measure the
+    host's noise more than the call)."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    while True:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        total = start.elapsed_time(end)
+        if total >= min_window_ms:
+            return total / iters
+        iters = math.ceil(iters * 1.2 * min_window_ms / max(total, 1e-3))
 
 
 def merge_bound_ms(n, k, p, item, x_rows):
@@ -113,16 +127,130 @@ def bound_ms(nbytes, ops, rate=FP32_FLOPS):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def check(label, kernel, twin, library, bound, tol=None, library_covers=None, plain_iters=3):
+def own_kernel_names():
+    """The names of the kernels that the port's CUDA sources define."""
+    names = set()
+    for src in (ROOT / "src" / "repro_torch" / "kernels" / "csrc").glob("*.cu"):
+        names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                                src.read_text()))
+    return names
+
+
+def device_times(fn, wrappers=None, iters=10, attempts=6, pad=16):
+    """Device time per call of ``fn`` from torch.profiler, over ``iters``
+    calls after one warm-up call, as a dict: ``ms`` (the port's own
+    kernels; every kernel when ``wrappers`` is None, as for a library
+    call), ``other_ms`` (any other device activity), ``recorded`` and
+    ``launched`` (the kernel records ``ms`` stands on, and the launches it
+    should) and ``kernels`` (the names any window recorded).
+
+    ``launched`` is what the counters of ``wrappers`` (the names of the
+    wrappers that launch ``fn``'s kernels) moved in the window, or, for a
+    library call, ``iters`` times the records of one call.  The profiler
+    can lose kernel records of a window, the first ones (on one H100, late
+    in a long process, from 1 in 10 to all of them), so each window opens
+    with ``pad`` launches of ``torch.cuda._sleep``'s kernel, left out of
+    every sum, and up to ``attempts`` windows are tried, ``pad`` growing
+    fourfold, until one records every launch.  Then
+    a window of the port's kernels that still keeps fewer than half of
+    them is refused, one that keeps more gives the kept records' mean
+    times the launches; a library call's ``ms`` is None."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    own_names = own_kernel_names()
+
+    def window(calls, pad):
+        before = read_launches()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(pad):
+                torch.cuda._sleep(1)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        after = read_launches()
+        launched = sum(after[w] - before[w] for w in wrappers or ())
+        mine = other = 0.0
+        recorded, names = 0, set()
+        for e in prof.events():
+            if (e.device_type != DeviceType.CUDA or e.name in PROFILER_BOOKKEEPING
+                    or PAD_KERNEL in e.name):
+                continue
+            if wrappers is None or any(n in e.name for n in own_names):
+                mine, recorded = mine + e.time_range.elapsed_us(), recorded + 1
+            else:
+                other += e.time_range.elapsed_us()
+            names.add(e.name[:90])
+        return launched, recorded, mine, other, names
+
+    fn()
+    torch.cuda.synchronize()
+    seen = set()  # every kernel name any window recorded
+    for _ in range(attempts):
+        launched, recorded, mine, other, names = window(iters, pad)
+        seen |= names
+        if wrappers is None:
+            launched = iters * window(1, pad)[1]
+        if launched and recorded == launched:
+            break
+        print(f"[kernel] the profiler kept {recorded} records of {launched} launches after "
+              f"{pad} padding launches; again with {4 * pad}", flush=True)
+        pad *= 4
+    if launched and recorded == launched:
+        scale = 1.0
+    elif wrappers is not None and recorded < launched <= 2 * recorded:
+        scale = launched / recorded
+    elif wrappers is None:  # a library call whose records did not repeat per call
+        scale = None
+    else:
+        raise AssertionError(f"torch.profiler kept {recorded} kernel records of {launched} "
+                             f"launches: not a count to time by")
+
+    def per_call(us):
+        return None if scale is None else us * scale / iters / 1e3
+
+    return {"ms": per_call(mine), "other_ms": per_call(other),
+            "recorded": recorded, "launched": launched, "kernels": sorted(seen)}
+
+
+def sdpa_backend(names):
+    """Which backend of scaled_dot_product_attention the kernel names show."""
+    if not names:
+        return "not recorded"
+    text = " ".join(names).lower()
+    for key, backend in (("cudnn", "cudnn"), ("flash", "flash"), ("fmha", "efficient"),
+                         ("cutlassf", "efficient")):
+        if key in text:
+            return backend
+    return "math"
+
+
+def check(label, kernel, twin, library, bound, tol=None, library_covers=None, plain_iters=3,
+          yardsticks=None):
     """Run the kernel and its twin once on the same inputs and hold every
     output together: bitwise when ``tol`` is None, else
     |k - t| <= tol + tol * |t| everywhere.  Time the kernel, the twin
     (``plain_iters`` calls after one warm-up, or one call without) and the
-    one-call library yardstick (``library_covers`` says what it
-    computes)."""
+    one-call library yardstick (``library_covers`` says what it computes)
+    by CUDA events around back-to-back calls, which count the wrapper's
+    host cost where it exceeds the device's; then, from torch.profiler
+    (``device_times``), the kernel's own device time per call
+    (``device_ms``; the wrapper's other device work, if any, as
+    ``device_other_ms``), with the kernel records it stands on and the
+    launches of the wrappers that the first call moved
+    (``device_recorded``, ``device_launched``), and each yardstick's device
+    time and the names of the kernels it ran (its backend).
+    ``yardsticks`` names further one-call yardsticks, timed the same
+    way."""
     import torch
 
-    got, want = kernel(), twin()
+    before = read_launches()
+    got = kernel()
+    wrappers = [w for w, n in read_launches().items() if n != before[w]]
+    if not wrappers:
+        raise AssertionError(f"{label}: no kernel wrapper launched")
+    want = twin()
     got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
     torch.cuda.synchronize()
     ok, max_abs, scale = True, 0.0, 0.0
@@ -148,6 +276,16 @@ def check(label, kernel, twin, library, bound, tol=None, library_covers=None, pl
         "library_ms": time_ms(library) if library is not None else None,
         "bound_ms": bound[0], "bound_by": bound[1],
     })
+    dev = device_times(kernel, wrappers)
+    rec.update({"device_ms": dev["ms"], "device_other_ms": dev["other_ms"],
+                "device_recorded": dev["recorded"], "device_launched": dev["launched"]})
+    for key, fn in (("library", library), *(yardsticks or {}).items()):
+        if fn is None:
+            continue
+        if key != "library":
+            rec[f"{key}_ms"] = time_ms(fn)
+        dev = device_times(fn)
+        rec[f"{key}_device_ms"], rec[f"{key}_kernels"] = dev["ms"], dev["kernels"]
     if library_covers:
         rec["library_covers"] = library_covers
     print(f"[kernel] {label}: " + " ".join(f"{k}={v}" for k, v in rec.items())
@@ -247,7 +385,7 @@ def phase_kernels():
     # the flat N=1 form
     x1 = torch.randn((k, p), generator=gen, device=dev)
     w1 = torch.rand((k,), generator=gen, device=dev)
-    check(
+    out["gossip_mix"] = check(
         f"gossip_mix fp32 K={k} M={p}",
         lambda: gm.gossip_mix(x1, w1),
         lambda: gm.gossip_mix_rows_ref(
@@ -325,9 +463,11 @@ def phase_compressed_kernels():
     check("abs_histogram_rows N=37 P=1001 E=128", lambda: sp.abs_histogram_rows(dr, er),
           lambda: sp.abs_histogram_rows_ref(dr, er), None, hist_bound(37, 1001, 128))
     x1 = delta[0].clone()
-    check(f"abs_histogram M={p} E=128", lambda: sp.abs_histogram(x1, edges[0]),
-          lambda: sp.abs_histogram_rows_ref(x1[None], edges[:1])[0], None,
-          hist_bound(1, p, 128))
+    out["abs_histogram"] = check(
+        f"abs_histogram M={p} E=128", lambda: sp.abs_histogram(x1, edges[0]),
+        lambda: sp.abs_histogram_rows_ref(x1[None], edges[:1])[0], None,
+        hist_bound(1, p, 128), library_covers="none: no PyTorch call counts |x| into "
+                                              "per-row bins of arbitrary edges")
 
     # the selection itself (two histogram launches and the compaction)
     idx = sh._topk_idx(delta.abs(), k, "hist")
@@ -510,9 +650,11 @@ def phase_secure_kernels(int_rate):
     x1, b1, s1 = xs[0].clone(), bits[0].clone(), ss[0].clone()
     del xs, bits
     torch.cuda.empty_cache()
-    check(f"secure_mask_apply K={d} M={p}", lambda: sm.secure_mask_apply(x1, b1, s1),
-          lambda: sm.secure_mask_apply_rows_ref(x1[None], None, b1[None], s1[None])[0],
-          None, staged_bound(p, s1[None]), tol=1e-6)
+    out["secure_mask_apply"] = check(
+        f"secure_mask_apply K={d} M={p}", lambda: sm.secure_mask_apply(x1, b1, s1),
+        lambda: sm.secure_mask_apply_rows_ref(x1[None], None, b1[None], s1[None])[0],
+        None, staged_bound(p, s1[None]), tol=1e-6,
+        library_covers="none: no PyTorch call maps uint32 bits to signed masks and sums them")
     br = random_words((37, 6, 1003), gen, torch.int32)
     check("secure_mask_apply_rows B=37 K=6 M=1003",
           lambda: sm.secure_mask_apply_rows(xr, rr, br, sr),
@@ -544,8 +686,12 @@ def phase_entry_points():
     the launch counts read around these calls alone: ``topk_mask_approx``
     on one node's P parameters (two histogram launches, one mask launch),
     the stacked staged form on 64 messages and its flat form (one staged
-    launch each) and the stacked keyed form (one keyed launch)."""
+    launch each), the stacked keyed form (one keyed launch), and the flat
+    (N=1) forms ``abs_histogram`` and ``gossip_mix`` (K=6) on one node's
+    row (one launch each).  Returns the counts of the whole phase and, for
+    each flat form, the launches read around its call alone."""
     import torch
+    from repro_torch.kernels import gossip_mix as gm
     from repro_torch.kernels import secure_mask as sm
     from repro_torch.kernels import sparsify as sp
 
@@ -557,25 +703,40 @@ def phase_entry_points():
     bits = random_words((64, d, p), gen, torch.int32)
     keys = random_words((64, d, 2), gen, torch.int64)
     signs = torch.randint(-1, 2, (64, d), generator=gen, device=dev).float()
+    edges = log_edges(x[None].abs())[0]
+    w6 = torch.rand(d + 1, generator=gen, device=dev)
     torch.cuda.synchronize()
+
+    def counted(wrapper, fn):
+        before = read_launches()[wrapper]
+        res = fn()
+        torch.cuda.synchronize()
+        return res, read_launches()[wrapper] - before
+
     reset_launches()
     vals, mask, t = sp.topk_mask_approx(x, MAIN_K)
     y = sm.secure_mask_apply_nodes(xs, bits, signs)
-    y1 = sm.secure_mask_apply(xs[0], bits[0], signs[0])
+    y1, flat_apply = counted("secure_mask_apply_rows",
+                             lambda: sm.secure_mask_apply(xs[0], bits[0], signs[0]))
     yk = sm.secure_mask_apply_nodes_keyed(xs, keys, signs)
+    hist, flat_hist = counted("abs_histogram_rows", lambda: sp.abs_histogram(x, edges))
+    mixed, flat_mix = counted("gossip_mix_rows", lambda: gm.gossip_mix(xs[:d + 1], w6))
     torch.cuda.synchronize()
     launches = read_launches()
-    print(f"[entry] launches={launches}; kept {int(mask.sum())} of {p} at t={float(t)}",
-          flush=True)
-    want = {**{k: 0 for k in launches}, "abs_histogram_rows": 2, "threshold_mask": 1,
-            "secure_mask_apply_rows": 2, "secure_mask_apply_rows_keyed": 1}
-    if launches != want:
-        raise AssertionError(f"entry-point launches {launches}, want {want}")
+    flat = {"secure_mask_apply": flat_apply, "abs_histogram": flat_hist, "gossip_mix": flat_mix}
+    print(f"[entry] launches={launches}; flat forms alone {flat}; kept {int(mask.sum())} of "
+          f"{p} at t={float(t)}", flush=True)
+    want = {**{k: 0 for k in launches}, "abs_histogram_rows": 3, "threshold_mask": 1,
+            "secure_mask_apply_rows": 2, "secure_mask_apply_rows_keyed": 1, "gossip_mix_rows": 1}
+    if launches != want or set(flat.values()) != {1}:
+        raise AssertionError(f"entry-point launches {launches}, want {want}; flat forms {flat}")
     if not (int(mask.sum()) >= MAIN_K and torch.equal(vals, torch.where(mask, x, 0.0))):
         raise AssertionError("topk_mask_approx kept too few or wrong values")
     if not (torch.equal(y1, y[0]) and bool(torch.isfinite(y).all() and torch.isfinite(yk).all())):
         raise AssertionError("secure mask entry points disagree or are not finite")
-    return launches
+    if not (int(hist.sum()) == p and mixed.shape == (p,) and bool(torch.isfinite(mixed).all())):
+        raise AssertionError("abs_histogram miscounted, or gossip_mix is not finite")
+    return launches, flat
 
 
 def phase_secure_path():
@@ -774,9 +935,8 @@ def profile_call(label, fn):
         fn()
         torch.cuda.synchronize()
     wall_ms = (time.time() - t) * 1e3
-    bookkeeping = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
     dev = [e for e in prof.events()
-           if e.device_type == DeviceType.CUDA and e.name not in bookkeeping]
+           if e.device_type == DeviceType.CUDA and e.name not in PROFILER_BOOKKEEPING]
     spans = sorted((e.time_range.start, e.time_range.end) for e in dev)
     busy_us, cur_s, cur_e = 0.0, None, None
     for a, b in spans:
@@ -926,16 +1086,24 @@ def phase_lm_kernels():
         pos = torch.arange(s, device=dev)
         band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # where the window covers every key, causal attention is the same
+        # function, and SDPA may take a flash backend for it
+        causal = {"library_is_causal": lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)} if w >= s else {}
         rec = check(
             f"swa_attention_gqa {label} B={b} S={s} H={h} Hkv={hkv} D={d} window={w} "
-            f"{str(dt).split('.')[-1]}",
+            f"{str(dt).split('.')[-1]} route={swa._route(dt, d)}",
             lambda: swa.swa_attention_gqa(q, k, v, w),
             lambda: swa.swa_attention_gqa_ref(q, k, v, w),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band, enable_gqa=True),
             swa_bound(b, s, h, hkv, d, w, q.element_size()),
             tol=1e-2 if dt == torch.bfloat16 else 1e-4,
             library_covers="scaled_dot_product_attention(enable_gqa) with the band as a boolean "
-                           "mask, on (B, H, S, D) views")
+                           "mask, on (B, H, S, D) views", yardsticks=causal)
+        print(f"[kernel] scaled_dot_product_attention backends at {label}: band mask "
+              f"{sdpa_backend(rec['library_kernels'])}" + (
+                  f", is_causal {sdpa_backend(rec['library_is_causal_kernels'])} "
+                  f"({rec['library_is_causal_ms']} ms)" if causal else ""), flush=True)
         out.setdefault("swa_attention_gqa", rec)
         del q, k, v, qt, kt, vt, band
         torch.cuda.empty_cache()
@@ -1183,7 +1351,7 @@ def main():
     int_rate, sms, mhz = int32_rate()
     print(f"[device] {sms} SMs, max SM clock {mhz} MHz: {int_rate:.6g} INT32 ops/s", flush=True)
     checks.update(phase_secure_kernels(int_rate))
-    entry_launches = phase_entry_points()
+    entry_launches, flat_launches = phase_entry_points()
     secure_launches, eng = phase_secure_path()
     phase_profile(eng, "secure")
     time_share_step(eng, "secure")
@@ -1205,15 +1373,21 @@ def main():
                      if k in ("abs_histogram_rows", "quantize", "dequantize", "payload_mix_rows")})
     launches["secure_mask_apply_rows_keyed"] = secure_launches["secure_mask_apply_rows_keyed"]
     launches.update({k: entry_launches[k] for k in ("threshold_mask", "secure_mask_apply_rows")})
+    launches.update(flat_launches)
+    # one entry per TPU kernel (each function that reaches pl.pallas_call);
+    # the flat forms are their stacked kernels' wrappers at N = 1
     sources = {
         "gossip_mix_rows": ("gossip_mix.cu", "src/repro/kernels/gossip_mix.py:58"),
+        "gossip_mix": ("gossip_mix.cu", "src/repro/kernels/gossip_mix.py:30"),
         "payload_mix_rows": ("scatter_gossip.cu", "src/repro/kernels/scatter_gossip.py:56"),
         "abs_histogram_rows": ("sparsify.cu", "src/repro/kernels/sparsify.py:117"),
+        "abs_histogram": ("sparsify.cu", "src/repro/kernels/sparsify.py:44"),
         "quantize": ("quantize.cu", "src/repro/kernels/quantize.py:36"),
         "dequantize": ("quantize.cu", "src/repro/kernels/quantize.py:78"),
         "threshold_mask": ("sparsify.cu", "src/repro/kernels/sparsify.py:76"),
         "secure_mask_apply_rows_keyed": ("secure_mask.cu", "src/repro/kernels/secure_mask.py:161"),
         "secure_mask_apply_rows": ("secure_mask.cu", "src/repro/kernels/secure_mask.py:77"),
+        "secure_mask_apply": ("secure_mask.cu", "src/repro/kernels/secure_mask.py:42"),
         "swa_attention_gqa": ("swa_attention.cu", "src/repro/kernels/swa_attention.py:67"),
         "ssd_chunk": ("ssd_chunk.cu", "src/repro/kernels/ssd_chunk.py:54"),
     }
@@ -1226,7 +1400,9 @@ def main():
             "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"],
-            **({"library_covers": c["library_covers"]} if "library_covers" in c else {}),
+            **{k: c[k] for k in ("device_ms", "device_other_ms", "device_recorded",
+                                 "device_launched")},
+            **{k: v for k, v in c.items() if k.startswith("library_") and k != "library_ms"},
         })
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

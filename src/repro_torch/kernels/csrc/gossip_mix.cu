@@ -16,12 +16,28 @@
 // ridge.  The least traffic is X read once and out written once; a kernel
 // that fetches every neighbour row from device memory moves about K times X
 // instead, unless the L2 cache catches the reuse of a row by its
-// neighbours.  This design reads rows with the widest vector load that the
-// row strides and the base pointers allow (up to 16 bytes), masks a ragged
-// tail where the row length is not a multiple of the vector, keeps the K
-// row ids and weights in shared memory, and gives each thread several
-// independent vector loads per operand to keep enough bytes in flight.  Zero-weight padding slots are not skipped: 0 * x propagates a
-// NaN or Inf row exactly as the reference does.
+// neighbours.  So the design keeps as many bytes in flight as the card
+// needs, at every N:
+// * rows are read with the widest vector load that the row strides and
+//   the base pointers allow (up to 16 bytes), with a masked tail where the
+//   row length is not a multiple of the vector;
+// * the grid is sized from N and P: each block takes one receiver and a
+//   column tile of 256 threads x ITEMS vectors, ITEMS 4 (1024 vectors, the
+//   N = 1024 engine merge's tile) shrunk to 2 or 1 until the grid puts at
+//   least 4 blocks on each SM, so the N = 1 form fills the card too;
+// * each thread loads its ITEMS vectors of one operand row before their
+//   FMAs, slot by slot in a runtime loop over K (a variant with K <= 8 as
+//   a template argument, all K rows' loads issued first, was 0.4% faster
+//   at N = 1024 and within the spread at N = 1 on an H100, too little
+//   for a second code path: PERF.md, tools/ab_gossip_mix.py);
+// * the column loop's bound is the block's tile start, the same for every
+//   thread (a per-thread bound made the N = 1024 merge measurably slower);
+// * the K row ids and weights sit in shared memory; a null row table means
+//   rows n*K + k (the stacked (N, K, M) and flat (K, M) forms), so their
+//   wrappers build no index tensor.
+// Accumulation is fp32 in slot order, as the twin adds.  Zero-weight
+// padding slots are not skipped: 0 * x propagates a NaN or Inf row exactly
+// as the reference does.
 //
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after the launch.
@@ -32,7 +48,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kItems = 4;   // vectors per thread per operand row
 constexpr int kMaxK = 64;   // operand slots per receiver
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -48,7 +63,7 @@ struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
 
-template <typename T, int V>
+template <typename T, int V, int ITEMS>
 __global__ void __launch_bounds__(kThreads)
 gossip_mix_rows_kernel(const T* __restrict__ X, int64_t ldx,
                        const int32_t* __restrict__ rows,
@@ -58,38 +73,39 @@ gossip_mix_rows_kernel(const T* __restrict__ X, int64_t ldx,
   __shared__ float s_w[kMaxK];
   const int64_t n = blockIdx.x;
   for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    s_off[k] = static_cast<int64_t>(rows[n * K + k]) * ldx;
+    const int64_t r = rows != nullptr ? static_cast<int64_t>(rows[n * K + k]) : n * K + k;
+    s_off[k] = r * ldx;
     s_w[k] = w[n * K + k];
   }
   __syncthreads();
 
   using VT = Vec<T, V>;
   const int64_t groups = P / V;  // whole vectors; the P % V tail is below
-  const int64_t tile = static_cast<int64_t>(kThreads) * kItems;
+  const int64_t tile = static_cast<int64_t>(kThreads) * ITEMS;
   VT* o = reinterpret_cast<VT*>(out + n * ldo);
   for (int64_t base = static_cast<int64_t>(blockIdx.y) * tile; base < groups;
        base += static_cast<int64_t>(gridDim.y) * tile) {
-    float acc[kItems][V];
+    float acc[ITEMS][V];
 #pragma unroll
-    for (int i = 0; i < kItems; ++i)
+    for (int i = 0; i < ITEMS; ++i)
 #pragma unroll
       for (int j = 0; j < V; ++j) acc[i][j] = 0.f;
     for (int k = 0; k < K; ++k) {
       const VT* x = reinterpret_cast<const VT*>(X + s_off[k]);
       const float wk = s_w[k];
-      VT buf[kItems] = {};
+      VT buf[ITEMS] = {};
 #pragma unroll
-      for (int i = 0; i < kItems; ++i) {
+      for (int i = 0; i < ITEMS; ++i) {
         const int64_t g = base + threadIdx.x + static_cast<int64_t>(i) * kThreads;
         if (g < groups) buf[i] = x[g];
       }
 #pragma unroll
-      for (int i = 0; i < kItems; ++i)
+      for (int i = 0; i < ITEMS; ++i)
 #pragma unroll
         for (int j = 0; j < V; ++j) acc[i][j] = fmaf(wk, to_f32(buf[i].v[j]), acc[i][j]);
     }
 #pragma unroll
-    for (int i = 0; i < kItems; ++i) {
+    for (int i = 0; i < ITEMS; ++i) {
       const int64_t g = base + threadIdx.x + static_cast<int64_t>(i) * kThreads;
       if (g < groups) {
         VT r;
@@ -109,20 +125,47 @@ gossip_mix_rows_kernel(const T* __restrict__ X, int64_t ldx,
   }
 }
 
-template <typename T, int V>
-cudaError_t launch(const void* X, int64_t ldx, const void* rows, const void* w,
-                   int N, int K, int64_t P, void* out, int64_t ldo,
-                   cudaStream_t stream) {
+int sm_count() {
+  static int sms = 0;  // the SM count of the first device asked; H100s all have 132
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+template <typename T, int V, int ITEMS>
+cudaError_t launch_tiles(const void* X, int64_t ldx, const void* rows, const void* w, int N,
+                         int K, int64_t P, void* out, int64_t ldo, cudaStream_t stream) {
   const int64_t groups = P / V;
-  const int64_t tile = static_cast<int64_t>(kThreads) * kItems;
+  const int64_t tile = static_cast<int64_t>(kThreads) * ITEMS;
   int64_t tiles = (groups + tile - 1) / tile;
   if (tiles < 1) tiles = 1;          // P < V: tile 0 runs the tail alone
   if (tiles > 65535) tiles = 65535;  // the column loop strides over the rest
   dim3 grid(static_cast<unsigned>(N), static_cast<unsigned>(tiles));
-  gossip_mix_rows_kernel<T, V><<<grid, kThreads, 0, stream>>>(
+  gossip_mix_rows_kernel<T, V, ITEMS><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(X), ldx, static_cast<const int32_t*>(rows),
       static_cast<const float*>(w), K, static_cast<T*>(out), ldo, P);
   return cudaGetLastError();
+}
+
+template <typename T, int V>
+cudaError_t launch(const void* X, int64_t ldx, const void* rows, const void* w,
+                   int N, int K, int64_t P, void* out, int64_t ldo,
+                   cudaStream_t stream) {
+  // the largest column tile (up to 1024 vectors) that still gives the grid
+  // at least 4 blocks per SM
+  const int64_t groups = P / V, want = 4 * static_cast<int64_t>(sm_count());
+  int items = 4;
+  while (items > 1 && N * ((groups + kThreads * items - 1) / (kThreads * items)) < want)
+    items /= 2;
+  switch (items) {
+    case 4: return launch_tiles<T, V, 4>(X, ldx, rows, w, N, K, P, out, ldo, stream);
+    case 2: return launch_tiles<T, V, 2>(X, ldx, rows, w, N, K, P, out, ldo, stream);
+    default: return launch_tiles<T, V, 1>(X, ldx, rows, w, N, K, P, out, ldo, stream);
+  }
 }
 
 template <typename T, int VMAX>
@@ -150,7 +193,7 @@ extern "C" {
 
 // vec: elements per vector access, a power of two that divides ldx, ldo
 // and both base pointers' element alignment (1, 2 or 4 for fp32; up to 8
-// for bf16).  The caller chooses it.
+// for bf16).  The caller chooses it.  rows may be null: rows n*K + k.
 int gossip_mix_rows_f32(const void* X, long long ldx, const void* rows,
                         const void* w, int N, int K, long long P, void* out,
                         long long ldo, int vec, void* stream) {

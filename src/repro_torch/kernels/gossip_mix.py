@@ -10,7 +10,7 @@ wrappers share it:
 
 * :func:`gossip_mix_rows` — the kernel's own form;
 * :func:`gossip_mix_nodes` and :func:`gossip_mix` — the reference's stacked
-  (N, K, M) and flat (K, M) signatures;
+  (N, K, M) and flat (K, M) signatures, on identity rows (no index tensor);
 * :func:`mix_rows` — the engine's form, the (1+D)-way merge of each node's
   own row with its neighbour rows.
 
@@ -57,11 +57,13 @@ def merge_tables(nbr, w, w_self):
 
 def gossip_mix_rows_ref(X, rows, w):
     """Plain twin of the kernel: per slot, an index-select of operand rows
-    and a weighted fp32 sum, self slot first (the kernel's order)."""
-    rows = rows.long()
-    acc = torch.zeros((rows.shape[0], X.shape[1]), dtype=torch.float32, device=X.device)
-    for k in range(rows.shape[1]):
-        acc = acc + w[:, k:k + 1].float() * X.index_select(0, rows[:, k]).float()
+    and a weighted fp32 sum, self slot first (the kernel's order).
+    ``rows`` None means rows n*K + k."""
+    n, k = w.shape
+    rows = torch.arange(n * k, device=X.device).view(n, k) if rows is None else rows.long()
+    acc = torch.zeros((n, X.shape[1]), dtype=torch.float32, device=X.device)
+    for j in range(k):
+        acc = acc + w[:, j:j + 1].float() * X.index_select(0, rows[:, j]).float()
     return acc.to(X.dtype)
 
 
@@ -83,41 +85,46 @@ def gossip_mix_rows(X, rows, w, out=None):
     """out[n] = sum_k w[n, k] * X[rows[n, k]].
 
     X (R, P) fp32 or bf16 with unit column stride; rows (N, K) int32 in
-    [0, R); w (N, K) fp32.  Returns (N, P) in X's dtype, written into
-    ``out`` when given.
+    [0, R), or None for rows n*K + k (then R >= N*K); w (N, K) fp32.
+    Returns (N, P) in X's dtype, written into ``out`` when given.
     """
-    if X.device.type == "cpu":
+    dev = X.device
+    if dev.type == "cpu":
         res = gossip_mix_rows_ref(X, rows, w)
         return res if out is None else out.copy_(res)
-    if X.device.type != "cuda":
-        raise ValueError(f"gossip_mix_rows: unsupported device {X.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"gossip_mix_rows: unsupported device {dev}")
     if X.dtype not in _ENTRY:
         raise TypeError(f"gossip_mix_rows: X must be float32 or bfloat16, got {X.dtype}")
-    if rows.dtype != torch.int32 or w.dtype != torch.float32:
+    if w.dtype != torch.float32 or (rows is not None and rows.dtype != torch.int32):
         raise TypeError("gossip_mix_rows: rows must be int32 and w float32")
-    if X.dim() != 2 or rows.dim() != 2 or tuple(w.shape) != tuple(rows.shape):
+    if X.dim() != 2 or w.dim() != 2 or (rows is not None and rows.shape != w.shape):
         raise ValueError(
-            f"gossip_mix_rows: want X (R, P), rows (N, K), w (N, K); got "
-            f"{tuple(X.shape)}, {tuple(rows.shape)}, {tuple(w.shape)}"
+            f"gossip_mix_rows: want X (R, P), rows (N, K) or None, w (N, K); got "
+            f"{tuple(X.shape)}, {None if rows is None else tuple(rows.shape)}, {tuple(w.shape)}"
         )
-    n, k = rows.shape
+    n, k = w.shape
     if not 0 < k <= MAX_K:
         raise ValueError(f"gossip_mix_rows: K={k} outside 1..{MAX_K}")
-    if rows.device != X.device or w.device != X.device:
+    if rows is None and X.shape[0] < n * k:
+        raise ValueError(f"gossip_mix_rows: identity rows need {n * k} rows of X, got {X.shape[0]}")
+    if w.device != dev or (rows is not None and rows.device != dev):
         raise ValueError("gossip_mix_rows: X, rows and w must share one device")
-    if X.stride(1) != 1 or not rows.is_contiguous() or not w.is_contiguous():
+    if X.stride(1) != 1 or not w.is_contiguous() or not (rows is None or rows.is_contiguous()):
         raise ValueError("gossip_mix_rows: X rows, rows and w must be contiguous")
     if out is None:
-        out = torch.empty((n, X.shape[1]), dtype=X.dtype, device=X.device)
+        out = torch.empty((n, X.shape[1]), dtype=X.dtype, device=dev)
     elif (tuple(out.shape) != (n, X.shape[1]) or out.dtype != X.dtype
-          or out.device != X.device or out.stride(1) != 1):
+          or out.device != dev or out.stride(1) != 1):
         raise ValueError("gossip_mix_rows: out must be (N, P), X's dtype and device, unit column stride")
-    with torch.cuda.device(X.device):
-        err = _entry(X.dtype)(
-            X.data_ptr(), X.stride(0), rows.data_ptr(), w.data_ptr(), n, k,
-            X.shape[1], out.data_ptr(), out.stride(0), _vec_width(X, out),
-            torch.cuda.current_stream(X.device).cuda_stream,
-        )
+    args = (X.data_ptr(), X.stride(0), None if rows is None else rows.data_ptr(), w.data_ptr(),
+            n, k, X.shape[1], out.data_ptr(), out.stride(0), _vec_width(X, out),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if dev.index == torch.cuda.current_device():
+        err = _entry(X.dtype)(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = _entry(X.dtype)(*args)
     if err != 0:
         raise RuntimeError(f"gossip_mix_rows: kernel launch failed with CUDA error {err}")
     gossip_mix_rows.launches += 1
@@ -127,23 +134,26 @@ def gossip_mix_rows(X, rows, w, out=None):
 gossip_mix_rows.launches = 0  # kernel launches since the last reset
 
 
+def _weights(w):
+    return w if w.dtype == torch.float32 and w.is_contiguous() else w.to(torch.float32).contiguous()
+
+
 def gossip_mix_nodes(neighbors, weights):
     """neighbors (N, K, M), weights (N, K) -> (N, M): each receiver's K-way
     weighted merge of its own stacked operand rows."""
     n, k, m = neighbors.shape
-    rows = torch.arange(n * k, dtype=torch.int32, device=neighbors.device).view(n, k)
-    return gossip_mix_rows(
-        neighbors.reshape(n * k, m), rows, weights.to(torch.float32).contiguous()
-    )
+    if tuple(weights.shape) != (n, k):
+        raise ValueError(f"gossip_mix_nodes: weights {tuple(weights.shape)} for neighbors "
+                         f"{tuple(neighbors.shape)}")
+    return gossip_mix_rows(neighbors.reshape(n * k, m), None, _weights(weights))
 
 
 def gossip_mix(neighbors, weights):
     """neighbors (K, M), weights (K,) -> (M,)."""
-    k = neighbors.shape[0]
-    rows = torch.arange(k, dtype=torch.int32, device=neighbors.device)[None]
-    return gossip_mix_rows(
-        neighbors, rows, weights.to(torch.float32).reshape(1, k).contiguous()
-    )[0]
+    if neighbors.dim() != 2 or weights.dim() != 1 or weights.shape[0] != neighbors.shape[0]:
+        raise ValueError(f"gossip_mix: weights {tuple(weights.shape)} for neighbors "
+                         f"{tuple(neighbors.shape)}")
+    return gossip_mix_rows(neighbors, None, _weights(weights).view(1, -1))[0]
 
 
 def mix_rows(X, nbr, w, w_self):

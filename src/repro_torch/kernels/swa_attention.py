@@ -4,8 +4,11 @@ package's ``kernels/swa_attention.py`` Pallas kernel (``swa_attention``).
     out[b, i, h] = softmax_{i - window < j <= i}(q[b, i, h] . k[b, j, h // G] / sqrt(D))
                    @ v[b, j, h // G]
 
-One CUDA kernel (``csrc/swa_attention.cu``) computes it in fp32 from fp32 or
-bf16 inputs, output in the input dtype.  Two wrappers share it:
+``csrc/swa_attention.cu`` computes it by one of two kernels, chosen by the
+dtype (:func:`_route`): bf16 on the tensor cores (``"mma"``: bf16 products,
+fp32 softmax and accumulation, P rounded to bf16 before P·V), fp32 in plain
+fp32 FMAs (``"simt"``).  Output in the input dtype.  Two wrappers share
+them:
 
 * :func:`swa_attention_gqa` — the kernel's own form, in the layout
   ``attn_apply`` holds: q (B, S, H, D), k/v (B, S, Hkv, D); each query head
@@ -28,12 +31,25 @@ from repro_torch.kernels.build import load_library
 BQ = BK = 128     # the reference kernel's block sizes: S and window multiples of them
 NEG_INF = -1e30   # the reference's mask value
 MAX_D = 128
-_ENTRY = {torch.float32: "swa_attention_f32", torch.bfloat16: "swa_attention_bf16"}
+_ENTRY = {"simt": "swa_attention_f32", "mma": "swa_attention_bf16_mma"}
+
+
+def _route(dtype, D: int) -> str:
+    """The kernel a CUDA tensor takes: ``"mma"`` (tensor cores) for bf16,
+    ``"simt"`` (fp32 FMAs, full fp32 numerics) for fp32.  No fallback
+    between them."""
+    if not 0 < D <= MAX_D:
+        raise ValueError(f"swa_attention: head dim {D} outside 1..{MAX_D}")
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"swa_attention: q, k, v must be float32 or bfloat16, got {dtype}")
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype):
-    fn = getattr(load_library("swa_attention"), _ENTRY[dtype])
+def _entry(route):
+    fn = getattr(load_library("swa_attention"), _ENTRY[route])
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3) * 4 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -62,8 +78,8 @@ def swa_attention_gqa(q, k, v, window: int):
         return swa_attention_gqa_ref(q, k, v, window)
     if q.device.type != "cuda":
         raise ValueError(f"swa_attention: unsupported device {q.device}")
-    if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"swa_attention: q, k, v must all be float32 or bfloat16, got "
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"swa_attention: q, k, v must share one dtype, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("swa_attention: q, k and v must share one device")
@@ -72,7 +88,8 @@ def swa_attention_gqa(q, k, v, window: int):
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, S, H, D = q.shape
     Hkv = k.shape[2]
-    if k.shape[:2] != q.shape[:2] or k.shape[3] != D or H % Hkv or not 0 < D <= MAX_D:
+    route = _route(q.dtype, D)
+    if k.shape[:2] != q.shape[:2] or k.shape[3] != D or H % Hkv:
         raise ValueError(f"swa_attention: q {tuple(q.shape)} and k/v {tuple(k.shape)} do not "
                          f"agree (H % Hkv == 0, 1 <= D <= {MAX_D})")
     if int(window) < 1:
@@ -81,7 +98,7 @@ def swa_attention_gqa(q, k, v, window: int):
         raise ValueError("swa_attention: q, k and v need unit stride over D")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
-        err = _entry(q.dtype)(
+        err = _entry(route)(
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
             k.data_ptr(), k.stride(0), k.stride(1), k.stride(2),
             v.data_ptr(), v.stride(0), v.stride(1), v.stride(2),

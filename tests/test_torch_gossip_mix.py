@@ -185,3 +185,19 @@ def test_engine_without_a_card_raises(monkeypatch):
         tengine.RoundEngine(tengine.DLConfig(n_nodes=4, degree=2), None, None, None,
                             None, None)
     assert tengine.resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("N", [1, 3])
+@pytest.mark.parametrize("K", [1, 6, 9])
+def test_identity_rows_equal_explicit_arange_rows(N, K):
+    """rows None (what gossip_mix and gossip_mix_nodes pass: no index
+    tensor) means rows n*K + k: bitwise the explicit arange table, and the
+    stacked form agrees with the JAX package's Pallas kernel."""
+    x, w = _inputs((N * K, 333), (N, K), N * 10 + K)
+    X, W = torch.as_tensor(x), torch.as_tensor(w)
+    arange = torch.arange(N * K, dtype=torch.int32).view(N, K)
+    got = gm.gossip_mix_rows(X, None, W)
+    assert torch.equal(got, gm.gossip_mix_rows(X, arange, W))
+    assert torch.equal(gm.gossip_mix_nodes(X.view(N, K, 333), W), got)
+    want = jops.gossip_mix_nodes(jnp.asarray(x).reshape(N, K, 333), jnp.asarray(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)

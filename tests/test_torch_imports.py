@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (the
+"""The port stands alone: no file of ``src/repro_torch/``, of ``tools/``
+and not ``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (the
 module name ``repro`` itself; ``repro_torch`` is the port), and importing
 its modules builds no kernel."""
 import ast
@@ -11,7 +11,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+         + [ROOT / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 

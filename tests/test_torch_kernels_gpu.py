@@ -13,8 +13,8 @@ launches bitwise equal; the secure masks bitwise (x = 0, one key, sign +1)
 and masked messages within 1e-6 (the kernels round as the twins do, with
 no fused multiply-add, so they are expected bitwise); the threshold mask
 bitwise; the sliding-window attention fp32 1e-4 and bf16 1e-2 (fp32
-softmax in both, other summation orders; bf16 outputs may part by one
-rounding); the SSD chunk step 1e-4 (fp32 sums of up to 256 terms in
+softmax in both, other summation orders; the bf16 route rounds P to bf16
+before P·V and its outputs may part by one rounding); the SSD chunk step 1e-4 (fp32 sums of up to 256 terms in
 another order).
 """
 import pytest
@@ -73,6 +73,39 @@ def test_kernel_matches_twin_on_gpu(dtype, P, padded, vec):
     )
     with pytest.raises(TypeError):
         gm.gossip_mix_rows(X.double(), rows, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [1, 2, 1024])
+@pytest.mark.parametrize("K", [1, 6, 9])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_merge_identity_and_explicit_rows_on_gpu(N, K, dtype):
+    """Each grid size (N = 1 and 2 shrink the column tile) and slot count
+    (the paths' K = 6, and K = 1 and 9 about it), on identity rows (no
+    index tensor) and on explicit rows; identity rows equal explicit
+    arange rows bitwise."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(N * 10 + K)
+    P = 579_594 if N < 1024 else 4099
+    dt = getattr(torch, dtype)
+    X = torch.randn((N * K, P), generator=g, device=dev).to(dt)
+    w = torch.rand((N, K), generator=g, device=dev)
+    rows = torch.randint(0, N * K, (N, K), generator=g, device=dev, dtype=torch.int32)
+    arange = torch.arange(N * K, dtype=torch.int32, device=dev).view(N, K)
+    tol = TOL[dtype]
+    for r in (None, rows):
+        before = gm.gossip_mix_rows.launches
+        got = gm.gossip_mix_rows(X, r, w)
+        torch.cuda.synchronize()
+        assert gm.gossip_mix_rows.launches == before + 1
+        torch.testing.assert_close(got.float(), gm.gossip_mix_rows_ref(X, r, w).float(),
+                                   rtol=tol, atol=tol)
+    assert torch.equal(gm.gossip_mix_rows(X, None, w), gm.gossip_mix_rows(X, arange, w))
+    if N == 1:
+        assert torch.equal(gm.gossip_mix(X, w[0]), gm.gossip_mix_rows(X, arange, w)[0])
+    else:
+        assert torch.equal(gm.gossip_mix_nodes(X.view(N, K, P), w),
+                           gm.gossip_mix_rows(X, arange, w))
 
 
 @pytest.mark.gpu
@@ -278,6 +311,70 @@ def test_swa_kernel_matches_twin_on_gpu(B, S, H, Hkv, D, window, dtype):
     tol = 1e-4 if dtype == "float32" else 1e-2
     torch.testing.assert_close(got.float(), tswa.swa_attention_gqa_ref(q, kv[0], kv[1], window)
                                .float(), rtol=tol, atol=tol)
+
+
+def _swa_mma_check(q, k, v, window):
+    """One launch of the bf16 route, against the fp32-math twin at 1e-2."""
+    assert tswa._route(q.dtype, q.shape[3]) == "mma"
+    before = tswa.swa_attention_gqa.launches
+    got = tswa.swa_attention_gqa(q, k, v, window)
+    torch.cuda.synchronize()
+    assert tswa.swa_attention_gqa.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), tswa.swa_attention_gqa_ref(q, k, v, window).float(),
+                               rtol=1e-2, atol=1e-2)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 63, 200, 4096])
+@pytest.mark.parametrize("window", [1, 63, 64, 65, "S"])
+def test_swa_mma_route_matches_twin_on_gpu(S, window):
+    """The tensor-core route at ragged S, windows about one key tile, every
+    padded head dim (40 pads to 64) and G = H / Hkv of 1, 3 and 4."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(S)
+    w = S if window == "S" else window
+    B, Hkv = (1, 1) if S == 4096 else (2, 2)
+    for D in (32, 40, 64, 128):
+        for G in (1, 3, 4):
+            q = torch.randn((B, S, G * Hkv, D), generator=g, device=dev).bfloat16()
+            kv = torch.randn((2, B, S, Hkv, D), generator=g, device=dev).bfloat16()
+            _swa_mma_check(q, kv[0], kv[1], w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1])
+def test_swa_mma_route_reads_fused_projection_views_on_gpu(offset):
+    """q, k and v as strided views of one fused (B, S, (H + 2 Hkv) D)
+    projection, as a fused QKV product gives them: 16-byte aligned rows
+    (cp.async) and, one element off, unaligned ones (plain loads); each
+    equals the kernel on contiguous copies, bitwise."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(19 + offset)
+    B, S, H, Hkv, D = 2, 300, 9, 3, 64
+    qkv = torch.randn((B, S, offset + (H + 2 * Hkv) * D), generator=g, device=dev).bfloat16()
+    q = qkv[..., offset:offset + H * D].unflatten(-1, (H, D))
+    k = qkv[..., offset + H * D:offset + (H + Hkv) * D].unflatten(-1, (Hkv, D))
+    v = qkv[..., offset + (H + Hkv) * D:].unflatten(-1, (Hkv, D))
+    got = _swa_mma_check(q, k, v, 128)
+    assert torch.equal(got, tswa.swa_attention_gqa(q.contiguous(), k.contiguous(),
+                                                   v.contiguous(), 128))
+
+
+@pytest.mark.gpu
+def test_swa_mma_window_edge_is_strict_on_gpu():
+    """Key i - window is out in bf16 too: one large value at key 10 reaches
+    row 10 + W - 1 and not row 10 + W."""
+    dev = _card()
+    S, D, W = 256, 64, 128
+    q = torch.zeros((1, S, 1, D), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros_like(q)
+    v = torch.zeros_like(q)
+    v[0, 10] = 1000.0
+    out = _swa_mma_check(q, k, v, W)
+    assert float(out[0, 10 + W - 1].float().abs().max()) > 0
+    assert float(out[0, 10 + W].float().abs().max()) == 0
 
 
 @pytest.mark.gpu

@@ -66,3 +66,34 @@ def test_window_edge_is_strict():
     out = tswa.swa_attention(q, k, v, W)
     assert float(out[0, 10 + W - 1].abs().max()) > 0   # key 10 in the window of row 137
     assert float(out[0, 10 + W].abs().max()) == 0       # not in row 138's
+
+
+@pytest.mark.parametrize("D", [8, 40, 64, 128])
+def test_route_by_dtype(D):
+    """bf16 goes to the tensor-core kernel, fp32 to the fp32 one, at every
+    head dim the kernels take; nothing else has a route."""
+    assert tswa._route(torch.bfloat16, D) == "mma"
+    assert tswa._route(torch.float32, D) == "simt"
+    with pytest.raises(TypeError):
+        tswa._route(torch.float16, D)
+    with pytest.raises(ValueError):
+        tswa._route(torch.bfloat16, D + 128)
+
+
+@pytest.mark.parametrize("S,W,D", [(256, 128, 64), (384, 128, 32)])
+def test_twin_rounding_p_to_bf16_stays_within_reference_tolerance(S, W, D):
+    """The tensor-core route's rounding point, P in bf16 before P·V: the
+    twin's softmax weights rounded so stay within the reference's own bf16
+    tolerance of ``ref.swa_attention_ref`` on bf16 inputs."""
+    q, k, v = (a.astype(jnp.bfloat16) for a in map(jnp.asarray, _qkv(1, S, D, S + D)))
+    tq, tk, tv = (torch.as_tensor(np.asarray(a, np.float32)) for a in (q, k, v))
+    pos = torch.arange(S)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    s = torch.where(band, tq[0] @ tk[0].T / D ** 0.5, torch.tensor(tswa.NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    got = (p.to(torch.bfloat16).float() @ tv[0]).to(torch.bfloat16)
+    plain = tswa.swa_attention_gqa_ref(*(a.to(torch.bfloat16)[:, :, None] for a in (tq, tk, tv)),
+                                       W)[0, :, 0]
+    assert not torch.equal(got, plain)  # rounding P moves the output
+    want = np.asarray(ref.swa_attention_ref(q[0], k[0], v[0], W), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2, atol=3e-2)
