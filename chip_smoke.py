@@ -42,6 +42,9 @@ Phases (any failure raises and the exit code is non-zero):
    served through ``repro_torch.serving.ServingEngine.generate`` with the
    sliding-window kernel, 8 requests of 4096-token prompts and 32 greedy new
    tokens: 30 kernel launches per generate, all in the prefill, 0 in decode;
+11b. serve-bf16-reference: the same model and weights, 2 prompts of 4096
+   tokens, prefill logits of the bf16 kernel route and of bf16 plain torch
+   attention against the fp32 kernel route on the card, with bounds;
 12. forward: the Mamba2-370M teacher-forced forward and loss (the published
    config: 48 layers, bf16, chunk 256) on 4 x 2048 tokens through
    ``repro_torch.models.api.loss_fn`` with the SSD chunk kernel: 48 launches;
@@ -70,6 +73,7 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 dense tensor-core rate
+TF32_FLOPS = 495e12        # H100 SXM TF32 dense tensor-core rate
 INT32_LANES_PER_SM = 64    # INT32 operations per SM and clock (Hopper white paper)
 # integer-ALU instructions per Threefry-2x32 call of the keyed secure-mask
 # kernel (csrc/secure_mask.cu): 20 funnel-shift rotates, 20 xors and the
@@ -499,15 +503,19 @@ def phase_compressed_kernels():
     del noise, codes, scale, delta
 
     # payload merge: the int8 wire (self slot kept, K=6) and the fp32 wire
-    # (exact values, self slot dropped, K=5); two launches bitwise equal
+    # (exact values, self slot dropped, K=5), bitwise; on the selector's
+    # rows, sorted by index (the path's call, sorted_idx=True), and on the
+    # same payloads with each row shuffled (the wrapper sorts them first);
+    # two launches bitwise equal
     from repro_torch.core.topology import SparseTopology
 
     st = SparseTopology.regular_circulant(n, MAIN_DEG).to(dev)
+    perm = torch.rand((n, k), generator=gen, device=dev).argsort(1)
     for label, v, self_slot in (("int8 wire", valq, True), ("fp32 wire", val, False)):
         rows, w = st.merge_tables(include_self=self_slot)
         s_ = rows.shape[1]
-        a = sg.payload_mix_rows(X, idx, v, rows, w)
-        b = sg.payload_mix_rows(X, idx, v, rows, w)
+        a = sg.payload_mix_rows(X, idx, v, rows, w, sorted_idx=True)
+        b = sg.payload_mix_rows(X, idx, v, rows, w, sorted_idx=True)
         torch.cuda.synchronize()
         if not torch.equal(a, b):
             raise AssertionError(f"payload_mix_rows {label}: two launches differ")
@@ -518,24 +526,31 @@ def phase_compressed_kernels():
                     .view(n, s_, k)) * w[:, :, None]).reshape(-1)
         Y = X.clone()
         rec = check(
-            f"payload_mix_rows {label} N={n} P={p} K={s_} k={k}",
-            lambda: sg.payload_mix_rows(X, idx, v, rows, w),
+            f"payload_mix_rows {label} sorted N={n} P={p} K={s_} k={k}",
+            lambda: sg.payload_mix_rows(X, idx, v, rows, w, sorted_idx=True),
             lambda: sg.payload_mix_rows_ref(X, idx, v, rows, w),
             lambda: Y.view(-1).index_add_(0, flat, contrib),
-            payload_bound(n, p, n, k, s_), tol=1e-5,
+            payload_bound(n, p, n, k, s_),
             library_covers="index_add_ of precomputed contributions: the scatter alone",
         )
         out.setdefault("payload_mix_rows", rec)
         del flat, contrib, Y
+        ish, vsh = idx.gather(1, perm), v.gather(1, perm)
+        check(f"payload_mix_rows {label} unsorted N={n} P={p} K={s_} k={k}",
+              lambda: sg.payload_mix_rows(X, ish, vsh, rows, w),
+              lambda: sg.payload_mix_rows_ref(X, ish, vsh, rows, w), None,
+              payload_bound(n, p, n, k, s_))
+        del ish, vsh
+    del perm
     nr, pr, kr = 33, 1003, 100
     Xr = torch.randn((nr, pr), generator=gen, device=dev)
     ir = torch.rand((nr, pr), generator=gen, device=dev).argsort(1)[:, :kr].int().contiguous()
     vr2 = torch.randn((nr, kr), generator=gen, device=dev)
     rr, wr = SparseTopology.regular_circulant(nr, 4).to(dev).merge_tables()
-    check(f"payload_mix_rows N={nr} P={pr} K=5 k={kr}",
+    check(f"payload_mix_rows unsorted N={nr} P={pr} K=5 k={kr}",
           lambda: sg.payload_mix_rows(Xr, ir, vr2, rr, wr),
           lambda: sg.payload_mix_rows_ref(Xr, ir, vr2, rr, wr), None,
-          payload_bound(nr, pr, nr, kr, 5), tol=1e-5)
+          payload_bound(nr, pr, nr, kr, 5))
     del X, val, valq, idx
     torch.cuda.empty_cache()
     return out
@@ -1053,14 +1068,17 @@ def swa_bound(b, s, h, hkv, d, window, item):
                     BF16_FLOPS if item == 2 else FP32_FLOPS)
 
 
-def ssd_bound(g, l, h, p, n):
+def ssd_bound(g, l, h, p, n, products=1, rate=FP32_FLOPS):
     """xdt, B, C and cum read once, y, state and decay written once (fp32
     bytes), against two flops per multiply-add of C·Bᵀ once per chunk cell
     over j <= i, the causal half of scores @ xdt per head and the state
-    product per head, at the fp32 rate; the larger of the two."""
+    product per head, each multiply-add taken ``products`` times, at
+    ``rate``: the fp32 rate, or the TF32 tensor rate with the kernel's
+    three products per multiply-add (3xTF32); the larger of the two."""
     tri = l * (l + 1) // 2
     nbytes = 4 * (2 * g * l * h * p + 2 * g * l * n + g * l * h + g * h * n * p + g * h)
-    return bound_ms(nbytes, 2 * (g * tri * n + g * h * tri * p + g * h * l * n * p))
+    return bound_ms(nbytes, 2 * products * (g * tri * n + g * h * tri * p + g * h * l * n * p),
+                    rate)
 
 
 def phase_lm_kernels():
@@ -1117,6 +1135,11 @@ def phase_lm_kernels():
             None, ssd_bound(g, l, h, p, n), tol=1e-4,
             library_covers="none: no one PyTorch call computes the masked, decay-weighted "
                            "chunk product and the chunk state")
+        rec["bound_tf32x3_ms"], rec["bound_tf32x3_by"] = ssd_bound(g, l, h, p, n, 3, TF32_FLOPS)
+        print(f"[kernel] ssd_chunk G={g} L={l} H={h} P={p} N={n}: bound {rec['bound_ms']} ms "
+              f"at the fp32 rate ({rec['bound_by']}), {rec['bound_tf32x3_ms']} ms at the TF32 "
+              f"tensor rate with 3 products per multiply-add ({rec['bound_tf32x3_by']})",
+              flush=True)
         out.setdefault("ssd_chunk", rec)
     torch.cuda.empty_cache()
     return out
@@ -1188,6 +1211,74 @@ def phase_serve():
           f"{SERVE_B * SERVE_NEW / decode_s} tokens/s; peak max_memory_allocated={peak} B; "
           f"split run ids equal to generate's: {bool(torch.equal(ids, ids2))}", flush=True)
     return launches
+
+
+def phase_serve_bf16_reference():
+    """The bf16 serve path against the fp32 route on the card: SmolLM-135M
+    at its published width and depth (30 layers, window 4096) on [serve]'s
+    random weights (seed 0), 2 prompts of 4096 tokens, through three routes:
+    (a) bf16 with the tensor-core kernel (``swa_mma_kernel``, P rounded to
+    bf16 before P·V), (b) bf16 with plain torch attention, (c) fp32 with
+    the SIMT kernel (held against the CPU at 1e-4 by [lm-reference]), on
+    the bf16 weights cast to fp32.  For (a) and (b): max |logits - fp32
+    logits| over the prefill logits against the fp32 logits' scale, the
+    share of greedy first-token ids equal to (c)'s, and the same readings
+    over every position of a forward.  Fails when (a)'s error exceeds
+    5e-2 x scale, or 2 x (b)'s error + 1e-3 x scale (the kernel's P
+    rounding costing more than bf16 itself)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import forward, init_params
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.utils.pytree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg = get_config("smollm-135m").replace(attn_impl="pallas_swa")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, SERVE_S)), device=dev)
+    routes = (("bf16 kernel", cfg, params, "mma"),
+              ("bf16 naive", cfg.replace(attn_impl="naive"), params, None),
+              ("fp32 kernel", cfg.replace(dtype="float32"),
+               tree_map(lambda a: a.float(), params), "simt"))
+    res = {}
+    with torch.no_grad():
+        for name, c, p, route in routes:
+            eng = ServingEngine(c, ServeConfig(batch=2, max_len=SERVE_S + 1), p, dev)
+            reset_launches()
+            logits, _ = eng.prefill(prompts)
+            launched = read_launches()["swa_attention_gqa"]
+            full = forward(p, c, {"tokens": prompts})[0]
+            torch.cuda.synchronize()
+            want = c.n_layers if route else 0
+            if launched != want:
+                raise AssertionError(f"[serve-bf16-reference] {name}: {launched} attention "
+                                     f"kernel launches in the prefill, want {want}")
+            res[name] = (logits[:, -1].float(), full.float().argmax(-1), full)
+            del eng
+    ref_logits, ref_ids, ref_full = res.pop("fp32 kernel")
+    scale = float(ref_logits.abs().max())
+    full_scale = float(ref_full.float().abs().max())
+    err = {}
+    for name, (lg, ids, full) in res.items():
+        err[name] = float((lg - ref_logits).abs().max())
+        first = float((lg.argmax(-1) == ref_logits.argmax(-1)).float().mean())
+        full_err = max(float((full[b].float() - ref_full[b]).abs().max()) for b in range(2))
+        pos = float((ids == ref_ids).float().mean())
+        print(f"[serve-bf16-reference] {name} vs fp32 kernel ({cfg.n_layers} layers, 2 x "
+              f"{SERVE_S} tokens): prefill logits max |d| = {err[name]} (fp32 scale {scale}, "
+              f"{err[name] / scale} of it); greedy first-token ids equal: {first}; every "
+              f"position of a forward: max |d| = {full_err} (scale {full_scale}), argmax "
+              f"equal at {pos}", flush=True)
+    a, b = err["bf16 kernel"], err["bf16 naive"]
+    ok = a <= 5e-2 * scale and a <= 2 * b + 1e-3 * scale
+    print(f"[serve-bf16-reference] bound: kernel {a} <= 5e-2 x scale = {5e-2 * scale} and "
+          f"<= 2 x naive + 1e-3 x scale = {2 * b + 1e-3 * scale}: {ok}", flush=True)
+    if not ok:
+        raise AssertionError("bf16 serve path: the kernel route is further from the fp32 "
+                             "route than bf16 alone allows")
 
 
 def phase_forward():
@@ -1362,6 +1453,8 @@ def main():
     checks.update(phase_lm_kernels())
     serve_launches = phase_serve()
     release()
+    phase_serve_bf16_reference()
+    release()
     forward_launches = phase_forward()
     release()
     phase_lm_reference()
@@ -1403,6 +1496,7 @@ def main():
             **{k: c[k] for k in ("device_ms", "device_other_ms", "device_recorded",
                                  "device_launched")},
             **{k: v for k, v in c.items() if k.startswith("library_") and k != "library_ms"},
+            **{k: v for k, v in c.items() if k.startswith("bound_tf32")},
         })
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

@@ -72,7 +72,7 @@ def mix_sparse(stacked, topo: SparseTopology):
 # wire codec perturbs values.
 
 
-def mix_payload(W, idx, val, X, *, exact_values: bool = True):
+def mix_payload(W, idx, val, X, *, exact_values: bool = True, sorted_idx: bool = False):
     """Payload-indexed sparse aggregation: X' (N, P) fp32 from per-node
     payloads idx (N, k) int32 and val (N, k).
 
@@ -80,13 +80,15 @@ def mix_payload(W, idx, val, X, *, exact_values: bool = True):
     cached merge tables) or a dense (N, N) tensor (the dense-mask oracle).
     exact_values: promise that ``val`` is bit for bit the sender's own
     coordinates, so the self slot's correction is exactly zero and its
-    slot is dropped; pass False for quantized payloads.
+    slot is dropped; pass False for quantized payloads.  sorted_idx:
+    promise that every idx row is non-decreasing, so the kernel's wrapper
+    need not sort the payloads first.
     """
     Xf = X.to(torch.float32)
     valf = val.to(torch.float32)
     if isinstance(W, SparseTopology):
         rows, w = W.merge_tables(include_self=not exact_values)
-        return payload_mix_rows(Xf, idx.to(torch.int32), valf, rows, w)
+        return payload_mix_rows(Xf, idx.to(torch.int32), valf, rows, w, sorted_idx=sorted_idx)
     return mix_payload_masked(W, idx, valf, Xf)
 
 

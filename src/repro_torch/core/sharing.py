@@ -42,6 +42,17 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
+def _resolve_selector(selector: str, x) -> str:
+    """The top-k rule ``selector`` names for the tensor ``x``: 'auto' is
+    'hist' on a CUDA tensor and 'exact' on the CPU (the reference picks the
+    histogram on its accelerator and the sort elsewhere)."""
+    if selector == "auto":
+        return "hist" if x.is_cuda else "exact"
+    if selector not in ("exact", "hist"):
+        raise ValueError(f"unknown selector {selector!r} (auto|exact|hist)")
+    return selector
+
+
 def _topk_idx(x_abs, k: int, selector: str = "auto"):
     """(N, k) int32 indices of (approximately) the k largest coordinates
     per row of the magnitudes ``x_abs`` — the one selection rule of the
@@ -52,23 +63,29 @@ def _topk_idx(x_abs, k: int, selector: str = "auto"):
     (``torch.topk`` promises no order among ties); 'hist' — the histogram
     threshold (``kernels.sparsify.topk_threshold_rows``, two histogram
     kernel launches), then the first k survivors in index order; 'auto' —
-    'hist' on a CUDA tensor, 'exact' on the CPU (the reference picks the
-    histogram on its accelerator and the sort elsewhere).
+    see :func:`_resolve_selector`.
+
+    Every 'hist' row is non-decreasing, which the payload merge relies on
+    (``sorted_idx``).  A row with fewer than k survivors (non-finite
+    magnitudes: a NaN makes the row's threshold NaN, and no magnitude
+    compares >= it) is padded with index 0, as the reference pads it; the
+    padding goes in front of the survivors, where the reference puts it
+    after them, so that the row stays sorted.  The padded entries all
+    carry coordinate 0's one value, so every use of the row (gather,
+    merge, scatter into the state) gives the same bits in either order.
     """
-    if selector == "auto":
-        selector = "hist" if x_abs.is_cuda else "exact"
+    selector = _resolve_selector(selector, x_abs)
     if selector == "exact":
         order = torch.sort(x_abs, dim=1, descending=True, stable=True).indices
         return order[:, :k].to(torch.int32)
-    if selector != "hist":
-        raise ValueError(f"unknown selector {selector!r} (auto|exact|hist)")
     n = x_abs.shape[0]
     keep = x_abs >= topk_threshold_rows(x_abs, k)[:, None]
     # int32 prefix counts: the int64 default would add 8 bytes per element
     keep &= torch.cumsum(keep, 1, dtype=torch.int32) <= k
     rows, cols = keep.nonzero(as_tuple=True)   # row-major: index order per row
     counts = keep.sum(1)
-    slot = torch.arange(rows.numel(), device=x_abs.device) - (counts.cumsum(0) - counts)[rows]
+    # survivor q of row r goes to slot (k - counts[r]) + q: padding first
+    slot = torch.arange(rows.numel(), device=x_abs.device) + (k - counts.cumsum(0))[rows]
     out = torch.zeros((n, k), dtype=torch.int32, device=x_abs.device)
     out[rows, slot] = cols.to(torch.int32)
     return out
@@ -163,9 +180,10 @@ class _PayloadSharing:
     def _k(self, X) -> int:
         return max(1, int(self.budget * X.shape[1]))
 
-    def _aggregate(self, X, W, idx, valf):
+    def _aggregate(self, X, W, idx, valf, sorted_idx: bool):
         if self.payload:
-            return mix_payload(W, idx, valf, X, exact_values=self.quantize is None).to(X.dtype)
+            return mix_payload(W, idx, valf, X, exact_values=self.quantize is None,
+                               sorted_idx=sorted_idx).to(X.dtype)
         return mix_payload_masked(W, idx, valf, X).to(X.dtype)
 
     def _nbytes(self, degree, k: int, item: int, header: int):
@@ -200,10 +218,11 @@ class TopKSharing(_PayloadSharing):
     def round(self, X, W, state, key=None, degree=1.0, rnd=0):
         k = self._k(X)
         last = state["last_shared"]
-        idx = _topk_idx((X.to(torch.float32) - last).abs_(), k, self.selector)
+        selector = _resolve_selector(self.selector, X)
+        idx = _topk_idx((X.to(torch.float32) - last).abs_(), k, selector)
         val = X.gather(1, idx.long())
         valf, item, header = _wire(val, self.quantize, X.dtype)
-        X2 = self._aggregate(X, W, idx, valf)
+        X2 = self._aggregate(X, W, idx, valf, sorted_idx=selector == "hist")
         # error feedback: record what the receivers reconstructed, so a
         # quantization residual stays in the delta and is shared again
         last.scatter_(1, idx.long(), valf)

@@ -8,9 +8,15 @@ absent from a payload falls back to the receiver's own value,
     out[n] = X[n] + sum_s scatter(idx[r], (val[r] - X[n][idx[r]]) * w[n, s]),
              r = rows[n, s]
 
-One CUDA kernel (``csrc/scatter_gossip.cu``) computes it, reading each
-sender's payload row by index, so no (N, S, k) stack of operands is built.
-Two wrappers share it:
+One CUDA kernel (``csrc/scatter_gossip.cu``) computes it over column tiles
+of every receiver, reading each sender's payload row by index, so no
+(N, S, k) stack of operands is built.  The kernel finds a tile's entries by
+searching each payload row, so it takes rows sorted by index: a caller
+that knows its rows are sorted says so with ``sorted_idx=True`` (the
+histogram top-k selector emits them in index order); otherwise the wrapper
+sorts each (idx, val) row by index first (:func:`sort_payload_rows`),
+which changes no bit of the result where indices are distinct within a
+row.  Two wrappers share the kernel:
 
 * :func:`payload_mix_rows` — the kernel's own form, the engine's;
 * :func:`payload_mix_nodes` — the reference's stacked (N, K, k) signature.
@@ -54,13 +60,21 @@ def payload_mix_rows_ref(X, idx, val, rows, w):
     return out
 
 
-def payload_mix_rows(X, idx, val, rows, w):
+def sort_payload_rows(idx, val):
+    """Each (idx, val) row sorted by index, as the kernel takes it: one
+    ``torch.sort`` of idx and a ``gather`` of val.  Contiguous results."""
+    idx, order = torch.sort(idx, dim=1)
+    return idx, val.gather(1, order)
+
+
+def payload_mix_rows(X, idx, val, rows, w, *, sorted_idx: bool = False):
     """out[n] = X[n] + sum_s scatter(idx[rows[n, s]],
     (val[rows[n, s]] - X[n][idx[rows[n, s]]]) * w[n, s]).
 
     X (N, P) fp32 and idx (R, k) int32 / val (R, k) fp32 with unit column
-    stride; rows (N, S) int32 in [0, R); w (N, S) fp32.  Returns a new
-    (N, P) fp32 tensor.
+    stride; rows (N, S) int32 in [0, R); w (N, S) fp32.  sorted_idx: the
+    caller's promise that every idx row is non-decreasing; without it the
+    rows are sorted first.  Returns a new (N, P) fp32 tensor.
     """
     if X.device.type == "cpu":
         return payload_mix_rows_ref(X, idx, val, rows, w)
@@ -82,6 +96,8 @@ def payload_mix_rows(X, idx, val, rows, w):
     if (X.stride(1) != 1 or idx.stride(1) != 1 or val.stride(1) != 1
             or not rows.is_contiguous() or not w.is_contiguous()):
         raise ValueError("payload_mix_rows: rows of X, idx and val and the tables must be contiguous")
+    if not sorted_idx:
+        idx, val = sort_payload_rows(idx, val)
     n, p = X.shape
     out = torch.empty((n, p), dtype=torch.float32, device=X.device)
     with torch.cuda.device(X.device):

@@ -7,8 +7,11 @@ Per chunk cell g (batch x chunk) and head h, with L positions per chunk:
     state  = sum_j (B_j exp(cum_{L-1} - cum_j))^T xdt[j]       (N, P)
     decay  = exp(cum_{L-1})
 
-One CUDA kernel (``csrc/ssd_chunk.cu``) computes all three in fp32, reading
-the inputs through their strides.  A tensor on the CPU goes to the plain
+One CUDA kernel (``csrc/ssd_chunk.cu``) computes all three, reading the
+inputs through their strides: C·Bᵀ once per cell and 64-row tile, shared
+by the heads (B and C have one group), and every product on the tensor
+cores as three TF32 products of an fp32 split (3xTF32), which keeps fp32
+accuracy.  It takes L <= ``MAX_L``.  A tensor on the CPU goes to the plain
 twin :func:`ssd_chunk_ref`; a CUDA tensor launches the kernel or raises.
 The kernel is compiled on its first CUDA call, never at import.
 
@@ -25,7 +28,8 @@ import torch
 
 from repro_torch.kernels.build import load_library
 
-MAX_P = 128            # head dim the kernel takes (16 columns per thread x 8)
+MAX_P = 128            # head dim the kernel takes (two 64-column passes)
+MAX_L = 256            # chunk length: a 64-row tile's C·Bᵀ row lives in shared memory
 MAX_SMEM = 232_448     # shared memory one block may use on Hopper
 
 
@@ -88,9 +92,9 @@ def ssd_chunk(xdt, Bc, Cc, cum):
         raise ValueError("ssd_chunk: xdt, B and C need unit stride over their last axis")
     lib = _lib()
     smem = lib.ssd_chunk_smem_bytes(N, P)
-    if not 0 < P <= MAX_P or not 0 < smem <= MAX_SMEM:
-        raise ValueError(f"ssd_chunk: N={N}, P={P} outside what the kernel takes "
-                         f"(P <= {MAX_P}, {smem} bytes of shared memory)")
+    if not 0 < P <= MAX_P or not 0 < L <= MAX_L or not 0 < smem <= MAX_SMEM:
+        raise ValueError(f"ssd_chunk: L={L}, N={N}, P={P} outside what the kernel takes "
+                         f"(P <= {MAX_P}, L <= {MAX_L}, {smem} bytes of shared memory)")
     y = torch.empty((G, L, H, P), dtype=torch.float32, device=xdt.device)
     st = torch.empty((G, H, N, P), dtype=torch.float32, device=xdt.device)
     dec = torch.empty((G, H), dtype=torch.float32, device=xdt.device)

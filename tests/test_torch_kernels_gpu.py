@@ -7,9 +7,9 @@ card and without JAX:
 
 Tolerances: the gather merge fp32 1e-5 and bf16 1e-2 (both accumulate in
 fp32; the kernel uses fused multiply-adds, the twin separate ones); int8
-codes, scales and histogram counts bitwise (a NaN row included); the payload merge 1e-5 (the
-twin adds in the kernel's order, through another scatter), and two of its
-launches bitwise equal; the secure masks bitwise (x = 0, one key, sign +1)
+codes, scales and histogram counts bitwise (a NaN row included); the payload merge bitwise
+where indices are distinct within each payload row (the twin adds in the kernel's order and
+rounds as it does), on sorted and on unsorted rows, and two of its launches bitwise equal; the secure masks bitwise (x = 0, one key, sign +1)
 and masked messages within 1e-6 (the kernels round as the twins do, with
 no fused multiply-add, so they are expected bitwise); the threshold mask
 bitwise; the sliding-window attention fp32 1e-4 and bf16 1e-2 (fp32
@@ -149,23 +149,86 @@ def test_histogram_bitwise_twin_on_gpu(N, P, E):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("sorted_idx", [False, True])
 @pytest.mark.parametrize("N,P,k,include_self", [(64, 579_594, 57_959, True), (33, 1003, 100, False)])
-def test_payload_merge_twin_and_determinism_on_gpu(N, P, k, include_self):
+def test_payload_merge_twin_and_determinism_on_gpu(N, P, k, include_self, sorted_idx):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(N)
     X = torch.randn((N, P), generator=g, device=dev)
     idx = torch.rand((N, P), generator=g, device=dev).argsort(1)[:, :k].to(torch.int32).contiguous()
     val = torch.randn((N, k), generator=g, device=dev)
+    if sorted_idx:
+        idx, val = sg.sort_payload_rows(idx, val)
     rows, w = ttop.SparseTopology.regular_circulant(N, 6 if N % 2 == 0 else 4).to(dev).merge_tables(
         include_self=include_self)
     before = sg.payload_mix_rows.launches
-    a = sg.payload_mix_rows(X, idx, val, rows, w)
-    b = sg.payload_mix_rows(X, idx, val, rows, w)
+    a = sg.payload_mix_rows(X, idx, val, rows, w, sorted_idx=sorted_idx)
+    b = sg.payload_mix_rows(X, idx, val, rows, w, sorted_idx=sorted_idx)
     torch.cuda.synchronize()
     assert sg.payload_mix_rows.launches == before + 2
     assert torch.equal(a, b)
-    torch.testing.assert_close(a, sg.payload_mix_rows_ref(X, idx, val, rows, w),
-                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(a, sg.payload_mix_rows_ref(X, idx, val, rows, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sorted_idx", [False, True])
+def test_payload_merge_sums_duplicates_and_drops_out_of_range_on_gpu(sorted_idx):
+    """Duplicate indices within one slot still sum; indices below 0 or at
+    P and beyond are dropped; a sorted row keeps them at its ends."""
+    dev = _card()
+    P = 10_000
+    X = torch.zeros((1, P), device=dev)
+    idx = torch.tensor([[-5, 3, 3, 9_999, 7, 3, P, P + 7]], dtype=torch.int32, device=dev)
+    val = torch.tensor([[1.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0]], device=dev)
+    if sorted_idx:
+        idx, val = sg.sort_payload_rows(idx, val)
+    rows = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    w = torch.full((1, 1), 0.5, device=dev)
+    out = sg.payload_mix_rows(X, idx, val, rows, w, sorted_idx=sorted_idx)
+    torch.cuda.synchronize()
+    assert float(out[0, 3]) == 0.5 * (1.0 + 2.0 + 16.0)
+    assert float(out[0, 7]) == 4.0 and float(out[0, 9_999]) == 2.0
+    assert float(out.abs().sum()) == 9.5 + 4.0 + 2.0
+
+
+@pytest.mark.gpu
+def test_payload_merge_many_slots_on_gpu():
+    """More slots than a block holds ranges for at once (a star-like
+    receiver of 150 payloads) go in groups, in order: bitwise the twin."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(150)
+    N, R, S, P, k = 6, 40, 150, 5000, 300
+    X = torch.randn((N, P), generator=g, device=dev)
+    idx = torch.rand((R, P), generator=g, device=dev).argsort(1)[:, :k].to(torch.int32)
+    val = torch.randn((R, k), generator=g, device=dev)
+    rows = torch.randint(0, R, (N, S), generator=g, device=dev, dtype=torch.int32)
+    w = torch.rand((N, S), generator=g, device=dev) / S
+    got = sg.payload_mix_rows(X, idx, val, rows, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, sg.payload_mix_rows_ref(X, idx, val, rows, w))
+
+
+@pytest.mark.gpu
+def test_payload_merge_tile_edges_on_gpu():
+    """Payload indices on both sides of every column-tile edge, and at the
+    last column of a ragged last tile, land once each."""
+    dev = _card()
+    T = sg.load_library("scatter_gossip").payload_mix_rows_tile_cols()
+    P = 3 * T + 5
+    cols = sorted({c for e in (T, 2 * T, 3 * T) for c in (e - 1, e, e + 1)} | {0, P - 1})
+    g = torch.Generator(device=dev).manual_seed(9)
+    X = torch.randn((4, P), generator=g, device=dev)
+    idx = torch.tensor([cols] * 4, dtype=torch.int32, device=dev)
+    val = torch.randn((4, len(cols)), generator=g, device=dev)
+    rows = torch.tensor([[1, 2], [2, 3], [3, 0], [0, 1]], dtype=torch.int32, device=dev)
+    w = torch.rand((4, 2), generator=g, device=dev)
+    got = sg.payload_mix_rows(X, idx, val, rows, w, sorted_idx=True)
+    want = sg.payload_mix_rows_ref(X, idx, val, rows, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    untouched = torch.ones(P, dtype=torch.bool, device=dev)
+    untouched[torch.tensor(cols, device=dev)] = False
+    assert torch.equal(got[:, untouched], X[:, untouched])
 
 
 @pytest.mark.gpu
@@ -394,12 +457,17 @@ def test_swa_merged_heads_form_on_gpu():
 @pytest.mark.parametrize("G,L,H,P,N,strided", [
     (32, 256, 32, 64, 128, False),   # the Mamba2-370M forward
     (3, 16, 2, 8, 8, False),         # the smoke chunk
-    (4, 100, 3, 40, 50, True),       # ragged, B and C read through row strides, steep
-])                                   # decay: exp above the diagonal would overflow
+    # ragged, inputs read through unaligned row strides, steep decay (exp
+    # above the diagonal would overflow); then two head groups, two column
+    # passes over P and two chunks of N; then 16-byte copies of ragged rows
+    (4, 100, 3, 40, 50, True),
+    (2, 256, 11, 100, 200, True),
+    (2, 193, 9, 128, 64, False),
+])
 def test_ssd_kernel_matches_twin_on_gpu(G, L, H, P, N, strided):
     dev = _card()
     g = torch.Generator(device=dev).manual_seed(L * N)
-    xdt = torch.randn((G, L, H, P), generator=g, device=dev) * 0.2
+    xdt = (torch.randn((G, L, H, P + (3 if strided else 0)), generator=g, device=dev) * 0.2)[..., :P]
     bc = torch.randn((G, L, 2 * N + (3 if strided else 0)), generator=g, device=dev) * 0.4
     Bc, Cc = bc[..., :N], bc[..., N:2 * N]
     if not strided:

@@ -52,6 +52,46 @@ def test_payload_mix_nodes_matches_pallas_and_ref(N, P, K, k, distinct):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("N,P,K,k,distinct", [
+    (4, 100, 3, 5, True), (8, 1000, 7, 11, True), (2, 65536 + 3, 2, 4, True),
+    (4, 50, 6, 20, False),
+])
+def test_sorting_the_payload_rows_leaves_the_twin_unchanged(N, P, K, k, distinct):
+    """The wrapper's sort step (each (idx, val) row by index, as the kernel
+    takes it) changes no bit of the merge where indices are distinct within
+    a row; with duplicates their adds change order (atol)."""
+    x, idx, val, w = _stack(N, P, K, k, N * P + K, distinct)
+    X = torch.tensor(x)
+    flat_idx, flat_val = torch.tensor(idx).reshape(N * K, k), torch.tensor(val).reshape(N * K, k)
+    rows = torch.arange(N * K, dtype=torch.int32).view(N, K)
+    s_idx, s_val = sg.sort_payload_rows(flat_idx, flat_val)
+    assert bool((s_idx.diff(dim=1) >= 0).all()) and s_idx.is_contiguous()
+    got = sg.payload_mix_rows_ref(X, s_idx, s_val, rows, torch.tensor(w))
+    want = sg.payload_mix_rows_ref(X, flat_idx, flat_val, rows, torch.tensor(w))
+    if distinct:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("sorted_idx", [False, True])
+def test_rows_form_on_shuffled_and_sorted_rows_matches_pallas(sorted_idx):
+    """payload_mix_rows with the sorted promise off, on rows in random
+    order, and on, on rows sorted by index, against the JAX kernel in
+    interpret mode on the same payloads."""
+    N, P, K, k = 6, 3000, 4, 40
+    x, idx, val, w = _stack(N, P, K, k, 77)
+    if sorted_idx:
+        order = np.argsort(idx, axis=2)
+        idx, val = np.take_along_axis(idx, order, 2), np.take_along_axis(val, order, 2)
+    rows = torch.arange(N * K, dtype=torch.int32).view(N, K)
+    got = sg.payload_mix_rows(torch.tensor(x), torch.tensor(idx).reshape(N * K, k),
+                              torch.tensor(val).reshape(N * K, k), rows, torch.tensor(w),
+                              sorted_idx=sorted_idx)
+    want = jops.payload_mix_nodes(*(jnp.asarray(a) for a in (x, idx, val, w)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=ATOL)
+
+
 def test_duplicate_indices_across_slots_accumulate():
     out = sg.payload_mix_nodes(torch.zeros((1, 8)), torch.tensor([[[3], [3]]], dtype=torch.int32),
                                torch.tensor([[[1.0], [2.0]]]), torch.tensor([[0.5, 0.25]]))

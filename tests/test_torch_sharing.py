@@ -17,6 +17,7 @@ import torch
 from repro.core import sharing as jshare
 from repro.core import topology as jtop
 from repro_torch.core import engine as tengine
+from repro_torch.core import mixing as tmix
 from repro_torch.core import sharing as tshare
 from repro_torch.core import topology as ttop
 
@@ -48,6 +49,56 @@ def test_topk_idx_equals_jax(selector, k):
     want = jshare._topk_idx(jnp.asarray(a), k, selector)
     assert got.dtype == torch.int32 and got.shape == (N, k)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("k", [1, 100, 1003])
+def test_hist_rows_ascend_where_k_survivors_exist(k):
+    """The histogram selector's rows are strictly ascending (the payload
+    merge's sorted promise) wherever k coordinates reach the threshold."""
+    X, other = _xs(k + 1)
+    idx = tshare._topk_idx(torch.tensor(np.abs(X - other)), k, "hist")
+    assert bool((idx.diff(dim=1) > 0).all())
+
+
+def test_short_hist_rows_pad_in_front_and_round_as_jax(monkeypatch):
+    """A row with fewer than k survivors is padded with index 0 in front,
+    so it stays sorted; its entries are the reference's (which pads after
+    them), and a TopK round on such rows matches the JAX round.  Thresholds
+    above the k-th magnitude force the short rows in both packages."""
+    from repro.kernels import ops as jops
+
+    X, last = _xs(12)
+    a = np.abs(X - last)
+    k = 100
+    # row 0 keeps 37 coordinates, row 1 none, the others their usual k
+    t = np.sort(a, axis=1)[:, ::-1][:, k - 1].copy()
+    t[0] = np.sort(a[0])[::-1][36]
+    t[1] = np.inf
+    monkeypatch.setattr(tshare, "topk_threshold_rows", lambda x, kk: torch.tensor(t))
+    monkeypatch.setattr(jops, "topk_threshold_rows", lambda x, kk: jnp.asarray(t))
+    got = tshare._topk_idx(torch.tensor(a), k, "hist").numpy()
+    want = np.asarray(jshare._topk_idx(jnp.asarray(a), k, "hist"))
+    assert (np.diff(got, axis=1) >= 0).all()
+    assert (got[0, :k - 37] == 0).all() and (got[1] == 0).all()
+    np.testing.assert_array_equal(np.sort(got, axis=1), np.sort(want, axis=1))
+    jW, tW = _topo()
+    # the padded entries carry one value: the merge is the same bits with
+    # the reference's order of entries
+    Xt = torch.tensor(X)
+    merged = [tmix.mix_payload(tW, torch.tensor(i), Xt.gather(1, torch.tensor(i).long()), Xt,
+                               exact_values=False) for i in (got, want)]
+    assert torch.equal(*merged)
+    # column 0 takes up to k padded corrections per slot, summed in another
+    # order by the reference: rtol 1e-6 beside the usual atol
+    for quantize in (None, "int8"):
+        kw = dict(budget=k / P, quantize=quantize, selector="hist")
+        jX2, jst, _ = jshare.TopKSharing(**kw).round(
+            jnp.asarray(X), jW, {"last_shared": jnp.asarray(last)}, None, 5.0)
+        tX2, tst, _ = tshare.TopKSharing(**kw).round(
+            torch.tensor(X), tW, {"last_shared": torch.tensor(last)}, degree=5.0)
+        np.testing.assert_allclose(tX2.numpy(), np.asarray(jX2), rtol=1e-6, atol=ATOL)
+        np.testing.assert_allclose(tst["last_shared"].numpy(), np.asarray(jst["last_shared"]),
+                                   rtol=0, atol=ATOL)
 
 
 def test_auto_selector_is_exact_on_the_cpu():

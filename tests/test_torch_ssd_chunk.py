@@ -62,3 +62,49 @@ def test_steep_decay_gives_no_nan():
     assert all(bool(torch.isfinite(t).all()) for t in (y, st, dec))
     want = ref.ssd_chunk_ref(*(jnp.asarray(a[0]) for a in (xdt, Bc, Cc, cum)))
     np.testing.assert_allclose(y[0].numpy(), np.asarray(want[0]), rtol=3e-4, atol=2e-5)
+
+
+def _tf32(x, mode):
+    """x rounded to TF32 (10 mantissa bits): 'truncate' clears the low 13
+    bits, as the tensor core reads an fp32 register; 'round' rounds to
+    nearest, ties away from zero, as the kernel's ``cvt.rna.tf32.f32``."""
+    bits = x.contiguous().view(torch.int32)
+    if mode == "round":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a, b, mode):
+    """a @ b as the kernel's 3xTF32 takes it: each fp32 operand split as
+    hi + lo, both TF32, and lo·hi + hi·lo + hi·hi summed (the products of
+    two TF32 values are exact; the sums here in float64)."""
+    ah, bh = _tf32(a, mode), _tf32(b, mode)
+    al, bl = _tf32(a - ah, mode), _tf32(b - bh, mode)
+    d = lambda u, v: u.double() @ v.double()
+    return (d(al, bh) + d(ah, bl) + d(ah, bh)).float()
+
+
+@pytest.mark.parametrize("mode", ["round", "truncate"])
+def test_three_tf32_products_keep_fp32_accuracy(mode):
+    """The kernel's split at the Mamba2-370M chunk (L 256, N 128, P 64):
+    C·Bᵀ, S·xdt and the state product from three TF32 products each are
+    within 1e-5 of the fp32 twin, relative to each output's scale, where a
+    single TF32 product of C·Bᵀ is not within 1e-4."""
+    L, N, P = 256, 128, 64
+    xdt, Bc, Cc, cum = map(torch.as_tensor, _inputs(1, L, 1, P, N, 16))
+    xdt, Bc, Cc, cum = xdt[0, :, 0], Bc[0], Cc[0], cum[0, :, 0]
+    cb = _mm3(Cc, Bc.T, mode)
+    want_cb = Cc @ Bc.T
+    assert float((cb - want_cb).abs().max()) <= 1e-5 * float(want_cb.abs().max())
+    # one TF32 product alone would miss the 1e-4 gate of the kernel checks
+    one = _tf32(Cc, mode).double() @ _tf32(Bc.T, mode).double()
+    assert float((one.float() - want_cb).abs().max()) > 1e-4 * float(want_cb.abs().max())
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    S = torch.where(tri, cb * torch.exp(cum[:, None] - cum[None, :]), torch.zeros(()))
+    y = _mm3(S, xdt, mode)
+    w = torch.exp(cum[-1] - cum)
+    st = _mm3((Bc * w[:, None]).T, xdt, mode)
+    want_y, want_st, _ = tssd.ssd_chunk_ref(xdt[None, :, None], Bc[None], Cc[None],
+                                            cum[None, :, None])
+    for got, want in ((y, want_y[0, :, 0]), (st, want_st[0, 0])):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
