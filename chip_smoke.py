@@ -12,7 +12,11 @@ Phases (any failure raises and the exit code is non-zero):
    back-to-back calls, the wrapper's host cost included), its device time
    per call (torch.profiler), the twin's time, a one-call PyTorch
    yardstick's where one exists, and the least time the card could take
-   (its bound);
+   (its bound); the histogram in both passes of the top-k threshold (the
+   coarse log edges and the fine linear edges the path builds from them,
+   with each pass's bucket shares); for the flat forms, whose operands fit
+   in the 50 MB L2, the device time also with the L2 evicted before each
+   launch;
 4. main path: ``repro_torch.RoundEngine`` — synchronous D-PSGD with full
    sharing over a 5-regular overlay of 1024 nodes, GN-LeNet at width 32,
    8 rounds — with each kernel's launch count read around that run alone,
@@ -88,6 +92,10 @@ LIBS = ("gossip_mix", "scatter_gossip", "sparsify", "quantize", "secure_mask",
         "swa_attention", "ssd_chunk")
 SECURE_CFG = dict(secure=True, participation=0.9, secure_recovery=True)
 CMP_ELEMS = 1 << 28  # elements per step of a kernel-twin comparison
+L2_EVICT_BYTES = 256 << 20  # a write over this many bytes clears the 50 MB L2
+YARDSTICK_KEYS = ("searchsorted_", "code_pass_")  # check()'s further yardsticks
+PASS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
+             "device_recorded", "device_launched", "searchsorted_ms", "searchsorted_device_ms")
 PROFILER_BOOKKEEPING = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
 PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_times' padding
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
@@ -140,9 +148,11 @@ def own_kernel_names():
     return names
 
 
-def device_times(fn, wrappers=None, iters=10, attempts=6, pad=16):
+def device_times(fn, wrappers=None, iters=10, attempts=6, pad=16, evict=None):
     """Device time per call of ``fn`` from torch.profiler, over ``iters``
-    calls after one warm-up call, as a dict: ``ms`` (the port's own
+    calls after one warm-up call (each after ``evict()`` where given: a
+    write that clears the L2 cache of ``fn``'s operands, its kernels left
+    out of ``ms``), as a dict: ``ms`` (the port's own
     kernels; every kernel when ``wrappers`` is None, as for a library
     call), ``other_ms`` (any other device activity), ``recorded`` and
     ``launched`` (the kernel records ``ms`` stands on, and the launches it
@@ -171,6 +181,8 @@ def device_times(fn, wrappers=None, iters=10, attempts=6, pad=16):
             for _ in range(pad):
                 torch.cuda._sleep(1)
             for _ in range(calls):
+                if evict is not None:
+                    evict()
                 fn()
             torch.cuda.synchronize()
         after = read_launches()
@@ -231,7 +243,7 @@ def sdpa_backend(names):
 
 
 def check(label, kernel, twin, library, bound, tol=None, library_covers=None, plain_iters=3,
-          yardsticks=None):
+          yardsticks=None, l2_resident=False):
     """Run the kernel and its twin once on the same inputs and hold every
     output together: bitwise when ``tol`` is None, else
     |k - t| <= tol + tol * |t| everywhere.  Time the kernel, the twin
@@ -246,7 +258,10 @@ def check(label, kernel, twin, library, bound, tol=None, library_covers=None, pl
     (``device_recorded``, ``device_launched``), and each yardstick's device
     time and the names of the kernels it ran (its backend).
     ``yardsticks`` names further one-call yardsticks, timed the same
-    way."""
+    way.  ``l2_resident``: the operands fit in the 50 MB L2, where
+    back-to-back calls find them (``device_ms`` is then an L2 reading);
+    ``device_evicted_ms`` is the device time with the L2 cleared before
+    each launch by a write over a 256 MiB scratch buffer (not counted)."""
     import torch
 
     before = read_launches()
@@ -283,6 +298,13 @@ def check(label, kernel, twin, library, bound, tol=None, library_covers=None, pl
     dev = device_times(kernel, wrappers)
     rec.update({"device_ms": dev["ms"], "device_other_ms": dev["other_ms"],
                 "device_recorded": dev["recorded"], "device_launched": dev["launched"]})
+    if l2_resident:
+        scratch = torch.empty(L2_EVICT_BYTES, dtype=torch.uint8, device="cuda")
+        cold = device_times(kernel, wrappers, evict=lambda: scratch.fill_(1))
+        rec.update({"device_l2": "hot: back-to-back calls, operands L2-resident",
+                    "device_evicted_ms": cold["ms"],
+                    "device_evicted_recorded": cold["recorded"]})
+        del scratch
     for key, fn in (("library", library), *(yardsticks or {}).items()):
         if fn is None:
             continue
@@ -396,7 +418,7 @@ def phase_kernels():
             x1, torch.arange(k, dtype=torch.int32, device=dev)[None], w1[None]
         )[0],
         lambda: w1 @ x1,
-        merge_bound_ms(1, k, p, 4, k), tol=1e-5,
+        merge_bound_ms(1, k, p, 4, k), tol=1e-5, l2_resident=True,
     )
     torch.cuda.empty_cache()
     return out
@@ -434,6 +456,40 @@ def log_edges(a, nbins=128):
     return sp._exp(sp._log(lo)[:, None] * (1.0 - span) + sp._log(hi)[:, None] * span).contiguous()
 
 
+def fine_edges(a, k, coarse, nbins=128):
+    """The linear edges of ``topk_threshold_rows``'s second pass, inside
+    the coarse bin its first pass picks (one histogram launch)."""
+    import torch
+    from repro_torch.kernels import sparsify as sp
+
+    span = sp._span(nbins, a.device)[None, :]
+    t0, t0_hi = sp._pick_edge_rows(a, k, coarse)
+    fine = t0[:, None] * (1.0 - span) + torch.maximum(t0_hi, t0 + 1e-30)[:, None] * span
+    return fine.contiguous()
+
+
+def code_pass_yardstick(val):
+    """``torch.quantize_per_channel`` of ``val`` (R, C) on its precomputed
+    scales (the code pass alone, no absmax), as a yardsticks entry, or
+    None where this PyTorch build has no CUDA kernel for it."""
+    import torch
+    from repro_torch.kernels import quantize as q
+
+    scale = q.quantize_ref(val)[1][:, 0].double()
+    zero = torch.zeros(val.shape[0], dtype=torch.int64, device=val.device)
+
+    def fn():
+        return torch.quantize_per_channel(val, scale, zero, 0, torch.qint8)
+
+    try:
+        fn()
+    except (RuntimeError, NotImplementedError) as err:
+        print(f"[kernel] torch.quantize_per_channel does not run on the card: "
+              f"{str(err).splitlines()[0]}", flush=True)
+        return None
+    return {"code_pass": fn}
+
+
 def phase_compressed_kernels():
     """The kernels of the topk path against their twins, at the main
     path's shapes (N=1024, P=579,594, k=57,959; K=6 with the self slot for
@@ -449,19 +505,40 @@ def phase_compressed_kernels():
     n, p, k = MAIN_N, MAIN_P, MAIN_K
     out = {}
 
-    # histogram: |delta| of a TopK round, its coarse edges and one row of
-    # non-monotone edges (a fine edge one ulp below its left neighbour)
+    # histogram: |delta| of a TopK round, in both passes of the top-k
+    # threshold: its coarse log edges (with one row of non-monotone edges:
+    # a fine edge one ulp below its left neighbour), then the fine linear
+    # edges inside the coarse bin the path picks from them
     delta = torch.randn((n, p), generator=gen, device=dev) * torch.rand(
         (n, 1), generator=gen, device=dev)
     edges = log_edges(delta)
+    fine = fine_edges(delta, k, edges)
     edges[7, 40] = torch.nextafter(edges[7, 39], torch.zeros((), device=dev))
+    for label, e in (("coarse", edges), ("fine", fine)):
+        h = sp.abs_histogram_rows_ref(delta[:64], e[:64])
+        print(f"[kernel] abs_histogram_rows {label} pass, rows 0-63: bucket 0 holds "
+              f"{float(h[:, 0].sum()) / h.sum().item():.4f} of the elements, bucket E "
+              f"{float(h[:, -1].sum()) / h.sum().item():.4f}, {int((h > 0).sum(1).float().mean())} "
+              f"non-empty buckets per row on average", flush=True)
+    search = {"searchsorted": lambda: torch.searchsorted(edges, delta.abs(), right=True)}
     out["abs_histogram_rows"] = check(
-        f"abs_histogram_rows N={n} P={p} E=128",
+        f"abs_histogram_rows coarse N={n} P={p} E=128",
         lambda: sp.abs_histogram_rows(delta, edges),
         lambda: sp.abs_histogram_rows_ref(delta, edges),
         lambda: torch.topk(delta.abs(), k, dim=1),
-        hist_bound(n, p, 128), library_covers="torch.topk(|x|, k): the whole selection",
+        hist_bound(n, p, 128), library_covers="torch.topk(|x|, k): the whole selection; "
+        "searchsorted: torch.searchsorted(edges, |x|, right=True), the bucket search alone",
+        yardsticks=search,
     )
+    search = {"searchsorted": lambda: torch.searchsorted(fine, delta.abs(), right=True)}
+    out["abs_histogram_rows"]["fine_pass"] = check(
+        f"abs_histogram_rows fine N={n} P={p} E=128",
+        lambda: sp.abs_histogram_rows(delta, fine),
+        lambda: sp.abs_histogram_rows_ref(delta, fine),
+        None, hist_bound(n, p, 128), yardsticks=search,
+        library_covers="searchsorted: torch.searchsorted(edges, |x|, right=True), the bucket "
+                       "search alone")
+    del search, fine
     dr = torch.randn((37, 1001), generator=gen, device=dev)
     er = log_edges(dr)
     check("abs_histogram_rows N=37 P=1001 E=128", lambda: sp.abs_histogram_rows(dr, er),
@@ -471,7 +548,8 @@ def phase_compressed_kernels():
         f"abs_histogram M={p} E=128", lambda: sp.abs_histogram(x1, edges[0]),
         lambda: sp.abs_histogram_rows_ref(x1[None], edges[:1])[0], None,
         hist_bound(1, p, 128), library_covers="none: no PyTorch call counts |x| into "
-                                              "per-row bins of arbitrary edges")
+                                              "per-row bins of arbitrary edges",
+        l2_resident=True)
 
     # the selection itself (two histogram launches and the compaction)
     idx = sh._topk_idx(delta.abs(), k, "hist")
@@ -486,11 +564,16 @@ def phase_compressed_kernels():
     X = torch.randn((n, p), generator=gen, device=dev)
     val = X.gather(1, idx.long())
     noise = torch.rand((n, k), generator=gen, device=dev)
+    codes_only = code_pass_yardstick(val)
     out["quantize"] = check(
         f"quantize N={n} k={k}", lambda: q.quantize(val), lambda: q.quantize_ref(val),
-        None, codec_bound(n, k, False))
-    check(f"quantize noise N={n} k={k}", lambda: q.quantize(val, noise),
-          lambda: q.quantize_ref(val, noise), None, codec_bound(n, k, True))
+        None, codec_bound(n, k, False), yardsticks=codes_only,
+        library_covers="code_pass: torch.quantize_per_channel on precomputed scales, the "
+                       "code pass alone" if codes_only else None)
+    del codes_only
+    out["quantize"]["noise_form"] = check(
+        f"quantize noise N={n} k={k}", lambda: q.quantize(val, noise),
+        lambda: q.quantize_ref(val, noise), None, codec_bound(n, k, True))
     codes, scale = q.quantize(val)
     out["dequantize"] = check(
         f"dequantize N={n} k={k}", lambda: q.dequantize(codes, scale),
@@ -668,7 +751,7 @@ def phase_secure_kernels(int_rate):
     out["secure_mask_apply"] = check(
         f"secure_mask_apply K={d} M={p}", lambda: sm.secure_mask_apply(x1, b1, s1),
         lambda: sm.secure_mask_apply_rows_ref(x1[None], None, b1[None], s1[None])[0],
-        None, staged_bound(p, s1[None]), tol=1e-6,
+        None, staged_bound(p, s1[None]), tol=1e-6, l2_resident=True,
         library_covers="none: no PyTorch call maps uint32 bits to signed masks and sums them")
     br = random_words((37, 6, 1003), gen, torch.int32)
     check("secure_mask_apply_rows B=37 K=6 M=1003",
@@ -681,7 +764,7 @@ def phase_secure_kernels(int_rate):
     t1 = sp.topk_threshold(x1, MAIN_K)
     out["threshold_mask"] = check(
         f"threshold_mask M={p}", lambda: sp.threshold_mask(x1, t1),
-        lambda: sp.threshold_mask_ref(x1, t1), None, mask_bound(p),
+        lambda: sp.threshold_mask_ref(x1, t1), None, mask_bound(p), l2_resident=True,
         library_covers="none: no one PyTorch call returns both the kept values and the mask")
     xf = torch.randn(n * p, generator=gen, device=dev)
     tf = sp.topk_threshold(xf, n * MAIN_K)
@@ -1497,6 +1580,10 @@ def main():
                                  "device_launched")},
             **{k: v for k, v in c.items() if k.startswith("library_") and k != "library_ms"},
             **{k: v for k, v in c.items() if k.startswith("bound_tf32")},
+            **{k: v for k, v in c.items() if k.startswith(YARDSTICK_KEYS)},
+            **{k: v for k, v in c.items() if k.startswith("device_evicted") or k == "device_l2"},
+            **{form: {k: c[form][k] for k in PASS_KEYS if k in c[form]}
+               for form in ("fine_pass", "noise_form") if form in c},
         })
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

@@ -2,29 +2,51 @@
 //
 //   hist[n, b] = #{p < P : #{e < E : |x[n, p]| >= edges[n, e]} = b}
 //
-// x (N, P) fp32 with row stride ldx, edges (N, E) fp32 contiguous,
-// monotone (N,) bytes (1 where the row's edges are non-decreasing),
-// hist (N, E+1) int32 contiguous and zeroed by the caller.
+// x (N, P) fp32 with row stride ldx (any stride, any alignment), edges
+// (N, E) fp32 contiguous, hist (N, E+1) int32 contiguous (zeroed here).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/sparsify.py
 // (_hist_rows_kernel behind abs_histogram_rows, and through it the flat
 // abs_histogram).  The TPU kernel walks each row in order with the
 // histogram in VMEM, pads the row with +inf and subtracts the padding from
 // the last bucket afterwards; blocks here run in parallel over (row, column
-// chunk), count only the P real elements, and add their counts into the
+// range), count only the P real elements, and add their counts into the
 // row's histogram with one global atomic per non-empty bucket.  Counts are
 // integers, so the order of those atomics does not change the result.
 //
-// Bound: bytes.  Each element is read once; its bucket costs a binary
-// search over the row's edges in shared memory (log2(E+1) steps) and one
-// shared-memory atomic into the histogram of its warp (one histogram per
-// warp keeps the atomics of one hot bucket apart).
-//
-// Exactness: a binary search gives #{e : a >= edges[e]} only where the
-// edges are non-decreasing.  Fine edges t0*(1-s) + t1*s are two roundings
-// and may step down by an ulp, so a row whose edges are not monotone (the
-// caller says which) counts the compare over every edge instead.  A NaN
-// magnitude compares false with every edge and lands in bucket 0.
+// Bound: bytes (x read once).  The top-k threshold calls this twice per
+// round on the same data: once on 128 log-spaced edges (the coarse pass:
+// magnitudes spread over a hundred buckets) and once on 128 linear edges
+// inside one coarse bin (the fine pass: most magnitudes fall below the
+// first edge, in bucket 0).  The design:
+// * the two end buckets cost two compares and a register: a < e[0] (or a
+//   NaN) is bucket 0, a >= e[E-1] is bucket E; each thread counts them in
+//   registers and adds them once per block, so the fine pass's bucket 0
+//   and the coarse pass's extremes take no atomic;
+// * a middle magnitude's bucket needs no branch: a start interpolated
+//   between e[0] and e[E-1] (the float bits for log-spaced edges, a
+//   piecewise-linear log2; the values for the others), then one compare
+//   down and one up.  That is exact wherever the start lands within one
+//   bucket, which each block checks for its row once its edges are in
+//   shared memory (the start is monotone in a, so the two ends of each
+//   bucket's interval suffice).  A row that fails the check takes a
+//   binary search.  Without branches the compiler interleaves a thread's
+//   elements; a search with loops ran them one after another (the sweep
+//   in PERF.md).  The bucket is added with a shared atomic into the
+//   histogram of its warp;
+// * 16-byte loads (a per-row peel of up to 3 elements reaches the first
+//   16-byte boundary, a tail of up to 3 follows the last), kUnroll of
+//   them in flight per thread, at most 32 registers so that 2048 threads
+//   fit on an SM;
+// * the grid is sized from N and P: kWaves grids' worth of resident
+//   blocks over the card, split evenly over the rows, each block at least
+//   kMinVecs vectors, so that the flat N = 1 form runs hundreds of blocks;
+// * a row whose edges are not non-decreasing (fine edges t0*(1-s) + t1*s
+//   are two roundings and may step down by an ulp; each block checks its
+//   own) counts the compare over every edge for each element instead,
+//   exact for any edges.
+// A NaN magnitude compares false with every edge and lands in bucket 0;
+// the counts of a row sum to P.
 //
 // The threshold mask (threshold_mask_f32) keeps the entries with
 // |x| >= t: vals[i] = x[i] where kept, else +0, and mask[i] = 1 where kept,
@@ -37,54 +59,194 @@
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after the launch.
 #include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 32;    // elements per thread per block
+constexpr int kVec = 4;         // floats per load: 16 bytes
+constexpr int kUnroll = 2;      // loads in flight per thread
+constexpr int kMinBlocks = 2048 / kThreads;  // resident blocks per SM the registers allow
+constexpr int kMinVecs = 512;   // least vectors a block counts (when P allows)
+constexpr int kWaves = 8;       // the grid: kWaves x resident blocks of the card
 constexpr int kMaxEdges = 1024;
 constexpr int kMaskItems = 4;  // elements per thread of the threshold mask
 
-__global__ void __launch_bounds__(kThreads)
+struct alignas(4 * kVec) Pack { float v[kVec]; };
+
+// How a block finds the bucket of a magnitude of its row.
+enum Mode {
+  kLogStep,     // monotone edges, the log-domain start within one bucket: one step each way
+  kLinearStep,  // the same with the linear start
+  kSearch,      // other monotone edges: a binary search
+  kCompareAll,  // edges that are not non-decreasing: the compare over every edge
+};
+
+// One row's edges (in shared memory) and the interpolation between its
+// end edges e0 and eL.
+struct Row {
+  const float* e;
+  int E;
+  float e0, eL;
+  uint32_t b0, scale;  // kLogStep: bits of e0, (E-1) 2^32 / (bits(eL) - bits(e0))
+  float inv;           // kLinearStep: (E-1) / (eL - e0)
+};
+
+// The bucket a search starts from, in [1, E-1] and non-decreasing in a.
+// kLogStep interpolates the float bits, a piecewise-linear log2 (within
+// 0.09 of it); kLinearStep the values, truncated by an add of 2^23.
+template <Mode M>
+__device__ __forceinline__ int start(float a, const Row& r) {
+  if constexpr (M == kLogStep) {
+    const uint32_t b = 1u + __umulhi(__float_as_uint(a) - r.b0, r.scale);
+    return static_cast<int>(min(b, static_cast<uint32_t>(r.E - 1)));
+  } else {
+    const float t = fminf(fmaxf(__fmaf_rn(__fsub_rn(a, r.e0), r.inv, 1.f), 1.f),
+                          static_cast<float>(r.E - 1));
+    return __float_as_int(__fadd_rz(t, 8388608.f)) - 0x4B000000;
+  }
+}
+
+// Whether start<M> lands within one bucket of every magnitude's bucket:
+// start is monotone, so the two ends of each bucket's interval
+// [e[b-1], e[b]) suffice.  Each thread checks some buckets.
+template <Mode M>
+__device__ __forceinline__ bool start_within_one(const Row& r) {
+  bool ok = true;
+  for (int b = 1 + threadIdx.x; b < r.E; b += kThreads) {
+    const float lo = fmaxf(r.e[b - 1], 0.f);
+    if (r.e[b] > lo) {  // holds magnitudes; the largest of them is one ulp below e[b] > 0
+      const float hi = __uint_as_float(__float_as_uint(r.e[b]) - 1u);
+      ok = ok && start<M>(lo, r) >= b - 1 && start<M>(hi, r) <= b + 1;
+    }
+  }
+  return ok;
+}
+
+// Counts one magnitude: the end buckets into c0 and cE, a middle one into
+// the warp's histogram my.
+template <Mode M>
+__device__ __forceinline__ void count(float v, bool valid, const Row& r, int* my, int& c0,
+                                      int& cE) {
+  const float a = fabsf(v);
+  if constexpr (M == kCompareAll) {
+    int b = 0;
+    for (int e = 0; e < r.E; ++e) b += (a >= r.e[e]) ? 1 : 0;
+    if (valid) atomicAdd(&my[b], 1);
+  } else {
+    const bool lo = !(a >= r.e0), hi = a >= r.eL;  // a NaN is lo
+    c0 += (valid && lo) ? 1 : 0;
+    cE += (valid && !lo && hi) ? 1 : 0;
+    const bool mid = valid && !lo && !hi;  // e0 <= a < eL: E >= 2, bucket in [1, E-1]
+    int b;
+    if constexpr (M == kSearch) {
+      b = 0;
+      for (int top = r.E; b < top;) {
+        const int m = (b + top) >> 1;
+        if (a >= r.e[m]) b = m + 1; else top = m;
+      }
+    } else {  // start within one bucket: one compare down, one up, no branch
+      b = start<M>(a, r);
+      b -= (a < r.e[b - 1]) ? 1 : 0;
+      b += (a >= r.e[b]) ? 1 : 0;
+    }
+    if (mid) atomicAdd(&my[b], 1);
+  }
+}
+
+// Columns of a row before its first (4 * kVec)-byte boundary, at most P.
+__device__ __forceinline__ int64_t row_peel(const float* row, int64_t P) {
+  const int64_t mis = static_cast<int64_t>((reinterpret_cast<uintptr_t>(row) / 4) % kVec);
+  const int64_t h = (kVec - mis) % kVec;
+  return h < P ? h : P;
+}
+
+// Block j of J counts vectors [V j / J, V (j+1) / J) of the row after its
+// peel; block 0 also counts the peel, block J-1 the tail.
+template <Mode M>
+__device__ __forceinline__ void count_columns(const float* xr, int64_t P, int j, int J,
+                                              const Row& r, int* my, int& c0, int& cE) {
+  const int tid = threadIdx.x;
+  const int64_t h = row_peel(xr, P);
+  const int64_t V = (P - h) / kVec;        // vectors after the peel
+  const int64_t tail = h + V * kVec;       // first column after them
+  if (j == 0) count<M>(tid < h ? xr[tid] : 0.f, tid < h, r, my, c0, cE);
+  if (j == J - 1) count<M>(tail + tid < P ? xr[tail + tid] : 0.f, tail + tid < P, r, my, c0, cE);
+  const Pack* xv = reinterpret_cast<const Pack*>(xr + h);
+  const int64_t v1 = V * (j + 1) / J;
+  for (int64_t base = V * j / J; base < v1; base += static_cast<int64_t>(kUnroll) * kThreads) {
+    Pack buf[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int64_t v = base + u * kThreads + tid;
+      buf[u] = v < v1 ? xv[v] : Pack{};
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool valid = base + u * kThreads + tid < v1;
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) count<M>(buf[u].v[i], valid, r, my, c0, cE);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 abs_histogram_rows_kernel(const float* __restrict__ x, int64_t ldx, int64_t P,
-                          const float* __restrict__ edges, int E,
-                          const uint8_t* __restrict__ monotone,
+                          const float* __restrict__ edges, int E, int J,
                           int* __restrict__ hist) {
   extern __shared__ float smem[];
   float* s_e = smem;                                // [E]
   int* s_h = reinterpret_cast<int*>(smem + E);      // [kWarps][E + 1]
-  const int64_t n = blockIdx.x;
+  const int64_t n = blockIdx.x / J;
+  const int j = static_cast<int>(blockIdx.x % J);
   const int B = E + 1;
-  for (int i = threadIdx.x; i < E; i += blockDim.x) s_e[i] = edges[n * E + i];
-  for (int i = threadIdx.x; i < kWarps * B; i += blockDim.x) s_h[i] = 0;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < E; i += kThreads) s_e[i] = edges[n * E + i];
+  for (int i = tid; i < kWarps * B; i += kThreads) s_h[i] = 0;
   __syncthreads();
+  bool ok = true;
+  for (int i = tid + 1; i < E; i += kThreads) ok = ok && s_e[i] >= s_e[i - 1];
+  const bool mono = __syncthreads_and(ok) != 0;  // (NaN edges: not monotone)
 
-  const bool mono = monotone[n] != 0;
-  int* my = s_h + (threadIdx.x >> 5) * B;
+  Row r;
+  r.e = s_e;
+  r.E = E;
+  // E = 0: every element is bucket 0 = bucket E; the +inf edges send it there
+  r.e0 = E ? s_e[0] : INFINITY;
+  r.eL = E ? s_e[E - 1] : INFINITY;
+  // log-spaced edges, such as the coarse pass's: a normal e0 and eL > 2 e0,
+  // so that bits(eL) - bits(e0) >= 2^23 and the scale below is under 2^19
+  const bool lg = r.e0 >= FLT_MIN && r.eL > 2.f * r.e0;
+  const uint32_t span = __float_as_uint(r.eL) - __float_as_uint(r.e0);
+  r.b0 = __float_as_uint(r.e0);
+  r.scale = lg ? static_cast<uint32_t>((static_cast<uint64_t>(E - 1) << 32) / span) : 0u;
+  r.inv = static_cast<float>(E - 1) / (r.eL - r.e0);
+  Mode mode = mono ? kSearch : kCompareAll;
+  if (mono && E >= 2) {  // (E < 2 leaves no middle bucket to start in)
+    const bool step = lg ? start_within_one<kLogStep>(r) : start_within_one<kLinearStep>(r);
+    if (__syncthreads_and(step)) mode = lg ? kLogStep : kLinearStep;
+  }
+
+  int* my = s_h + (tid >> 5) * B;
+  int c0 = 0, cE = 0;  // the end buckets of a monotone row, per thread
   const float* xr = x + n * ldx;
-  const int64_t chunk = static_cast<int64_t>(kThreads) * kItems;
-  for (int64_t base = static_cast<int64_t>(blockIdx.y) * chunk; base < P;
-       base += static_cast<int64_t>(gridDim.y) * chunk) {
-    const int64_t end = base + chunk < P ? base + chunk : P;
-    for (int64_t c = base + threadIdx.x; c < end; c += kThreads) {
-      const float a = fabsf(xr[c]);
-      int b = 0;
-      if (mono) {
-        int hi = E;
-        while (b < hi) {
-          const int mid = (b + hi) >> 1;
-          if (a >= s_e[mid]) b = mid + 1; else hi = mid;
-        }
-      } else {
-        for (int e = 0; e < E; ++e) b += (a >= s_e[e]) ? 1 : 0;
-      }
-      atomicAdd(&my[b], 1);
-    }
+  switch (mode) {
+    case kLogStep: count_columns<kLogStep>(xr, P, j, J, r, my, c0, cE); break;
+    case kLinearStep: count_columns<kLinearStep>(xr, P, j, J, r, my, c0, cE); break;
+    case kSearch: count_columns<kSearch>(xr, P, j, J, r, my, c0, cE); break;
+    default: count_columns<kCompareAll>(xr, P, j, J, r, my, c0, cE); break;
+  }
+  c0 = __reduce_add_sync(0xffffffffu, c0);
+  cE = __reduce_add_sync(0xffffffffu, cE);
+  if ((tid & 31) == 0) {
+    if (c0) atomicAdd(&my[0], c0);
+    if (cE) atomicAdd(&my[E], cE);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < B; i += blockDim.x) {
+  for (int i = tid; i < B; i += kThreads) {
     int sum = 0;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) sum += s_h[w * B + i];
@@ -105,23 +267,45 @@ threshold_mask_kernel(const float* __restrict__ x, int64_t M, const float* __res
   }
 }
 
+int sm_count() {
+  static int sms = 0;  // the SM count of the first device asked; H100s all have 132
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// Blocks per row: kWaves grids of resident blocks (2048 threads per SM)
+// over the rows, each block at least kMinVecs vectors.
+int64_t blocks_per_row(int N, int64_t P) {
+  const int64_t want = static_cast<int64_t>(kWaves) * (2048 / kThreads) * sm_count();
+  const int64_t by_card = (want + N - 1) / N;
+  const int64_t by_row = (P / kVec + kMinVecs - 1) / kMinVecs;
+  int64_t J = by_card < by_row ? by_card : by_row;
+  if (J < 1) J = 1;
+  if (J * N > 0x7fffffff) J = 0x7fffffff / N;
+  return J;
+}
+
 }  // namespace
 
 extern "C" {
 
 int abs_histogram_rows_f32(const void* x, long long ldx, int N, long long P,
-                           const void* edges, int E, const void* monotone,
-                           void* hist, void* stream) {
-  if (N <= 0 || P <= 0) return 0;
+                           const void* edges, int E, void* hist, void* stream) {
+  if (N <= 0) return 0;
   if (E < 0 || E > kMaxEdges) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t chunk = static_cast<int64_t>(kThreads) * kItems;
-  int64_t chunks = (P + chunk - 1) / chunk;
-  if (chunks > 65535) chunks = 65535;  // the chunk loop strides over the rest
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(int) * static_cast<size_t>(N) * (E + 1), s);
+  if (err != cudaSuccess || P <= 0) return static_cast<int>(err);
+  const int64_t J = blocks_per_row(N, P);
   const size_t smem = sizeof(float) * E + sizeof(int) * kWarps * (E + 1);
-  dim3 grid(static_cast<unsigned>(N), static_cast<unsigned>(chunks));
-  abs_histogram_rows_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  abs_histogram_rows_kernel<<<static_cast<unsigned>(J * N), kThreads, smem, s>>>(
       static_cast<const float*>(x), ldx, P, static_cast<const float*>(edges), E,
-      static_cast<const uint8_t*>(monotone), static_cast<int*>(hist));
+      static_cast<int>(J), static_cast<int*>(hist));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -231,6 +231,151 @@ def test_payload_merge_tile_edges_on_gpu():
     assert torch.equal(got[:, untouched], X[:, untouched])
 
 
+def _hist_twice(x, edges):
+    """Two launches of the histogram: the same bits, one count each."""
+    before = tsp.abs_histogram_rows.launches
+    a = tsp.abs_histogram_rows(x, edges)
+    b = tsp.abs_histogram_rows(x, edges)
+    torch.cuda.synchronize()
+    assert tsp.abs_histogram_rows.launches == before + 2
+    assert torch.equal(a, b)
+    return a
+
+
+def _fine_edges(a, k):
+    """The top-k threshold's second-pass edges: linear inside the coarse
+    bin that its first pass picks (sparsify.topk_threshold_rows)."""
+    hi = a.abs().amax(1)
+    lo = torch.clamp_min(hi * 1e-7, 1e-30)
+    span = tsp._span(tsp.NBINS, a.device)[None, :]
+    coarse = tsp._exp(tsp._log(lo)[:, None] * (1.0 - span)
+                      + tsp._log(torch.clamp_min(hi, 1e-30))[:, None] * span)
+    t0, t0_hi = tsp._pick_edge_rows(a, k, coarse)
+    fine = t0[:, None] * (1.0 - span) + torch.maximum(t0_hi, t0 + 1e-30)[:, None] * span
+    return coarse.contiguous(), fine.contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pass_", ["coarse", "fine"])
+def test_histogram_both_topk_passes_bitwise_on_gpu(pass_):
+    """Both passes of the top-k threshold at the path's row length, on the
+    edges the path builds from the data: most of the fine pass's magnitudes
+    fall in bucket 0."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(17)
+    n, p = 16, 579_594
+    x = torch.randn((n, p), generator=g, device=dev) * torch.rand((n, 1), generator=g, device=dev)
+    coarse, fine = _fine_edges(x, p // 10)
+    edges = coarse if pass_ == "coarse" else fine
+    got = _hist_twice(x, edges)
+    assert torch.equal(got, tsp.abs_histogram_rows_ref(x, edges))
+    assert (got.sum(1) == p).all()
+    if pass_ == "fine":
+        assert (got[:, 0] > p // 2).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flat", "all_low", "all_high", "odd_slice", "slice3",
+                                  "nonmono_nan", "E1", "E0", "search"])
+def test_histogram_edge_shapes_bitwise_on_gpu(case):
+    """The flat N=1 form at P=579,594; rows entirely below e[0] or at and
+    above e[E-1]; odd P on column-slice views whose rows start off a
+    16-byte boundary; a non-monotone row with a NaN; E=1 and E=0; rows
+    whose interpolated start misses by more than a bucket (edges clustered
+    at one end, ulp-spaced denormal edges): the binary search."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(23)
+    base = torch.randn((6, 100_003), generator=g, device=dev)
+    edges = torch.sort(torch.rand((6, 128), generator=g, device=dev) * 2 + 0.01, dim=1).values
+    x = base
+    if case == "flat":
+        x1 = torch.randn(579_594, generator=g, device=dev)
+        e1 = _fine_edges(x1[None], 57_959)[1][0]
+        before = tsp.abs_histogram_rows.launches
+        got = tsp.abs_histogram(x1, e1)
+        torch.cuda.synchronize()
+        assert tsp.abs_histogram_rows.launches == before + 1
+        assert torch.equal(got, tsp.abs_histogram_rows_ref(x1[None], e1[None])[0])
+        return
+    if case == "all_low":
+        x = base * 1e-3
+        edges = edges + 1.0
+    elif case == "all_high":
+        x = base.abs() + 5.0
+    elif case == "odd_slice":
+        x = base[:, 1:]            # P = 100,002, rows 4 bytes past 16-byte boundaries
+    elif case == "slice3":
+        x = base[1:, 3:50_000]     # odd P, odd row offsets
+        edges = edges[1:].contiguous()
+    elif case == "nonmono_nan":
+        x = base.clone()
+        x[2, 5], x[4, 77] = float("nan"), float("nan")
+        edges = edges.clone()
+        edges[2, 60] = torch.nextafter(edges[2, 59], torch.zeros((), device=dev))
+        edges[3, [10, 90]] = edges[3, [90, 10]]
+    elif case == "E1":
+        edges = edges[:, 64:65].contiguous()
+    elif case == "E0":
+        edges = edges[:, :0].contiguous()
+    elif case == "search":
+        x = base * 2.0
+        edges = edges.clone()
+        edges[:3] = torch.cat([torch.linspace(1.0, 1.001, 100, device=dev),
+                               torch.linspace(2.0, 3.0, 28, device=dev)])
+        edges[3] = (torch.full((128,), 1e-44, device=dev).view(torch.int32)
+                    + torch.arange(128, dtype=torch.int32, device=dev)).view(torch.float32)
+        x[3, :1000] = edges[3, torch.arange(1000, device=dev) % 128]
+    got = _hist_twice(x, edges)
+    assert torch.equal(got, tsp.abs_histogram_rows_ref(x, edges))
+    assert (got.sum(1) == x.shape[1]).all()
+    if case == "all_low":
+        assert (got[:, 0] == x.shape[1]).all()
+    if case == "all_high":
+        assert (got[:, -1] == x.shape[1]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,C", [(1, 1), (4, 5), (1, 1001), (33, 1001), (16, 57_959),
+                                 (1, 57_959), (3, 200_003)])
+@pytest.mark.parametrize("noisy", [False, True])
+def test_quantize_cluster_bitwise_twin_on_gpu(R, C, noisy):
+    """Codes and scales bitwise the twin's at C from 1 to a row longer than
+    a cluster's registers hold (200,003 > 65,536), a NaN row among them;
+    two launches the same bits, one count each."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(R * C)
+    x = torch.randn((R, C), generator=g, device=dev) * torch.rand((R, 1), generator=g, device=dev)
+    if R > 1:
+        x[R // 2, C // 3] = float("nan")
+    noise = torch.rand((R, C), generator=g, device=dev) if noisy else None
+    before = tq.quantize.launches
+    c1, s1 = tq.quantize(x, noise)
+    c2, s2 = tq.quantize(x, noise)
+    torch.cuda.synchronize()
+    assert tq.quantize.launches == before + 2
+    assert torch.equal(c1, c2) and torch.equal(s1.view(torch.int32), s2.view(torch.int32))
+    want_c, want_s = tq.quantize_ref(x, noise)
+    assert torch.equal(c1, want_c)
+    torch.testing.assert_close(s1, want_s, rtol=0, atol=0, equal_nan=True)
+    if R > 1:
+        assert torch.isnan(s1[R // 2]).all() and not c1[R // 2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("noisy", [False, True])
+def test_quantize_unaligned_views_bitwise_twin_on_gpu(noisy):
+    """Column-slice views whose x, noise and codes rows reach their 16- and
+    4-byte boundaries after different peels take the single-column path."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((9, 57_962), generator=g, device=dev)[:, 1:-2]
+    noise = torch.rand((9, 57_961), generator=g, device=dev)[:, 2:] if noisy else None
+    codes, scale = tq.quantize(x, noise)
+    torch.cuda.synchronize()
+    want_c, want_s = tq.quantize_ref(x, noise)
+    assert torch.equal(codes, want_c) and torch.equal(scale, want_s)
+
+
 @pytest.mark.gpu
 def test_hist_selection_on_gpu_keeps_k_largest_by_threshold():
     dev = _card()

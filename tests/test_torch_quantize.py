@@ -8,6 +8,9 @@ XLA compiles it (under ``jit`` the division by 127 becomes a
 multiplication by fl(1/127)); the reference called op by op divides, and
 its scale may then differ by one rounding, which is checked as such.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,3 +124,71 @@ def test_wrong_device_type_raises():
     with pytest.raises(ValueError, match="unsupported device"):
         tq.dequantize(torch.ones((2, 4), dtype=torch.int8, device="meta"),
                       torch.ones((2, 1), device="meta"))
+
+
+# --- the CUDA kernel's column partition (csrc/quantize.cu), modelled in
+# plain Python: the kernel itself runs only on the card
+# (tests/test_torch_kernels_gpu.py)
+
+def _cu_const(name):
+    src = (Path(tq.__file__).parent / "csrc" / "quantize.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _cluster_size(c):
+    """cluster_size of csrc/quantize.cu: the least power of two up
+    to kMaxCluster whose threads hold c columns in registers."""
+    g = 1
+    while g < _cu_const("kMaxCluster") and g * _cu_const("kQThreads") * _cu_const("kQVecs") * 4 < c:
+        g *= 2
+    return g
+
+
+def _row_columns(c, g, h, w):
+    """(columns in registers, columns read again, single columns) of one
+    row on a cluster of g blocks: after a peel of h columns, group v of w
+    columns goes to thread v mod S (S = g kQThreads), the first
+    kQVecs * 4 / w of a thread's groups into its registers; the peel and
+    the tail (under 2w columns) one to each of the first threads."""
+    threads, slots = g * _cu_const("kQThreads"), _cu_const("kQVecs") * 4 // w
+    n_groups = (c - h) // w
+    tail = h + n_groups * w
+    held, again = [], []
+    for t in range(threads):
+        vs = np.arange(t, n_groups, threads)
+        for v in vs[:slots]:
+            held.extend(range(h + v * w, h + v * w + w))
+        for v in vs[slots:]:
+            again.extend(range(h + v * w, h + v * w + w))
+    singles = [t if t < h else tail + (t - h) for t in range(threads) if t < h + (c - tail)]
+    return held, again, singles
+
+
+@pytest.mark.parametrize("c", [0, 1, 3, 4, 5, 7, 1001, 8192, 8193, 57_959, 65_536, 65_537,
+                               200_003])
+def test_kernel_cluster_partition_covers_each_column_once(c):
+    """Every column of [0, c) is coded exactly once, for the cluster size
+    the kernel picks and for every other one, on both the 16-byte path
+    (any peel) and the single-column path; a row reads columns again only
+    beyond what kMaxCluster blocks hold."""
+    cap = _cu_const("kMaxCluster") * _cu_const("kQThreads") * _cu_const("kQVecs") * 4
+    g0 = _cluster_size(c)
+    for g in sorted({1, 2, 4, 8, g0}):
+        for w, peels in ((4, range(4)), (1, (0,))):
+            for h in peels:
+                held, again, singles = _row_columns(c, g, min(h, c), w)
+                cols = np.sort(np.concatenate([held, again, singles]).astype(np.int64))
+                np.testing.assert_array_equal(cols, np.arange(c))
+                if g == g0:  # read again only past kMaxCluster blocks' registers
+                    grouped = (c - min(h, c)) // w * w
+                    assert (len(again) > 0) == (grouped > cap), (c, g, h, w)
+    assert g0 == 8 or (g0 * cap // 8 >= c and (g0 == 1 or g0 * cap // 16 < c))
+
+
+def test_kernel_cluster_size_at_the_paths_row():
+    """The path's payload row (k = 57,959) takes a cluster of 8 blocks of
+    kQThreads, about 29 values a thread, with nothing read again."""
+    c = 57_959
+    assert _cluster_size(c) == 8
+    per_thread = c / (8 * _cu_const("kQThreads"))
+    assert 28 < per_thread <= _cu_const("kQVecs") * 4

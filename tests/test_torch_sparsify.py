@@ -11,6 +11,9 @@ the last bit of ``log`` and ``exp`` differs between XLA and torch, and exp
 turns an absolute error of its argument into a relative error of the edge
 (measured: up to 8 ulp, 5.4e-7 relative, at |log(lo)| < 16).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,3 +160,218 @@ def test_threshold_mask_cpu_takes_the_twin():
     assert tsp.threshold_mask.launches == before
     with pytest.raises(ValueError, match="unsupported device"):
         tsp.threshold_mask(torch.ones(4, device="meta"), 0.5)
+
+
+# --- the CUDA kernel's index arithmetic (csrc/sparsify.cu), modelled in
+# plain torch: the kernel itself runs only on the card
+# (tests/test_torch_kernels_gpu.py)
+
+def _cu_const(name, source="sparsify"):
+    src = (Path(tsp.__file__).parent / "csrc" / f"{source}.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _bits(v):
+    return v.to(torch.float32).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def _start(a, e, mode):
+    """start<kLogStep> / start<kLinearStep>: the bucket a middle magnitude's
+    search starts from, in [1, E-1], non-decreasing in a.  Log: the float
+    bits interpolated, 1 + umulhi(bits(a) - bits(e0), (E-1) 2^32 / (bits(eL)
+    - bits(e0))); linear: fma(a - e0, (E-1) / (eL - e0), 1) truncated."""
+    E = e.numel()
+    if mode == "log":
+        scale = ((E - 1) << 32) // int(_bits(e[-1]) - _bits(e[0]))
+        assert scale < 1 << 19
+        d = (_bits(a) - int(_bits(e[0]))) & 0xFFFFFFFF
+        return torch.clamp_max(1 + ((d * scale) >> 32), E - 1)
+    with np.errstate(divide="ignore", over="ignore"):
+        inv = np.float32(E - 1) / (np.float32(e[-1]) - np.float32(e[0]))
+    x = (a - e[0]).double() * float(inv) + 1.0   # one rounding to fp32, as the fma
+    t = torch.nan_to_num(x.float(), nan=1.0).clamp(1.0, float(E - 1))
+    return t.to(torch.int64)
+
+
+def _kernel_mode(e):
+    """The block's mode for a row of edges e (E,) fp32: "log"/"linear" where
+    the start lands within one bucket of every magnitude's bucket (checked
+    at both ends of each bucket's interval), "search" for other
+    non-decreasing edges, "compare_all" for the rest."""
+    E = e.numel()
+    if not bool((e[1:] >= e[:-1]).all()):
+        return "compare_all"
+    if E < 2:
+        return "search"
+    normal = float(np.finfo(np.float32).tiny)
+    mode = "log" if bool(e[0] >= normal) and bool(e[-1] > 2 * e[0]) else "linear"
+    b = torch.arange(1, E)
+    lo = torch.clamp_min(e[:-1], 0.0)
+    held = e[1:] > lo
+    hi = (_bits(e[1:]) - 1).to(torch.int32).view(torch.float32)
+    ok = (_start(lo, e, mode) >= b - 1) & (_start(hi, e, mode) <= b + 1)
+    return mode if bool(ok[held].all()) else "search"
+
+
+def _kernel_buckets(a, e, start=None):
+    """The kernel's bucket of each magnitude a (M,) fp32 against one row's
+    edges e (E,) fp32: a < e[0] (or NaN) is 0, a >= e[E-1] is E, a middle
+    one steps once down and once up from its start (``start`` replaces
+    the kernel's, for a test of the step alone), or is found by a binary
+    search; edges not non-decreasing count the compare over every edge."""
+    mode = _kernel_mode(e)
+    if mode == "compare_all":
+        return (a[:, None] >= e[None, :]).sum(1), mode
+    E = e.numel()
+    inf = torch.tensor(float("inf"))
+    e0, eL = (e[0], e[-1]) if E else (inf, inf)
+    lo, hi = ~(a >= e0), a >= eL
+    b = torch.where(hi & ~lo, E, 0)
+    mid = ~lo & ~hi
+    am = a[mid]
+    if mode == "search":
+        b[mid] = torch.searchsorted(e, am, right=True)
+        return b, mode
+    bm = _start(am, e, mode) if start is None else start
+    bm = bm - (am < e[bm - 1]).long()
+    b[mid] = bm + (am >= e[bm]).long()
+    return b, mode
+
+
+def _edge_cases(p, seed):
+    """Magnitudes of every kind: normal, zeros, denormals, inf, NaN."""
+    x = torch.tensor(_rows(1, p, seed)[0])
+    x[:8] = torch.tensor([0.0, -0.0, 1e-45, -3e-39, float("inf"), float("-inf"),
+                          float("nan"), 1e-38])
+    return x.abs()
+
+
+def _fine_edges(x, k):
+    """The second pass's linear edges, as topk_threshold_rows builds them."""
+    a = torch.tensor(x)
+    span = tsp._span(tsp.NBINS, "cpu")[None, :]
+    t0, t0_hi = tsp._pick_edge_rows(a, k, torch.tensor(_log_edges(x)))
+    return t0[:, None] * (1.0 - span) + torch.maximum(t0_hi, t0 + 1e-30)[:, None] * span
+
+
+def _ulp_edges(base, n=128):
+    """n edges, each one ulp above the last."""
+    bits = torch.full((n,), base, dtype=torch.float32).view(torch.int32)
+    return (bits + torch.arange(n, dtype=torch.int32)).view(torch.float32)
+
+
+def _one_row_edges(kind):
+    x = _rows(2, 20_000, 12)
+    log_e = torch.tensor(_log_edges(x)[0])
+    if kind == "nonmono":
+        log_e[40] = log_e[39] * 0.999
+    if kind == "nan_edge":
+        log_e[3] = float("nan")
+    return {
+        "log": log_e, "nonmono": log_e, "nan_edge": log_e,
+        "linear": _fine_edges(x, 2000)[0], "ulp": _ulp_edges(0.5),
+        "E0": torch.zeros(0), "E1": torch.tensor([0.7]), "E2": torch.tensor([1e-3, 2.0]),
+        "flat": torch.full((16,), 0.5), "zero_lo": torch.linspace(0.0, 1e-30, 128),
+        "negative": torch.linspace(-1.0, 3.0, 128), "denormal": _ulp_edges(1e-44, 64),
+        "clustered": torch.cat([torch.linspace(1.0, 1.001, 100), torch.linspace(2.0, 3.0, 28)]),
+    }[kind].to(torch.float32).contiguous()
+
+
+@pytest.mark.parametrize("kind,mode", [
+    ("log", "log"), ("linear", "linear"), ("ulp", "linear"), ("nonmono", "compare_all"),
+    ("nan_edge", "compare_all"), ("E0", "search"), ("E1", "search"), ("E2", "log"),
+    ("flat", "linear"), ("zero_lo", "linear"), ("negative", "linear"), ("denormal", "search"),
+    ("clustered", "search"),
+])
+def test_kernel_bucket_rule_is_the_compare_count(kind, mode):
+    """The kernel's rule gives #{e : a >= e[e]} for every magnitude (zeros,
+    denormals, inf, NaN among them), whatever the edges: one step each way
+    from the start where it is checked within one bucket, a binary search
+    where it is not."""
+    e = _one_row_edges(kind)
+    a = _edge_cases(20_000, 11)
+    if e.numel():  # the edges themselves and their neighbours
+        below = torch.nextafter(e, torch.zeros_like(e))
+        a = torch.cat([a, e.abs(), below.abs(), torch.nextafter(e, e + 1).abs()])
+    want = (a[:, None] >= e[None, :]).sum(1)
+    got, got_mode = _kernel_buckets(a, e)
+    assert got_mode == mode
+    assert torch.equal(got, want)
+    hist = torch.bincount(got, minlength=e.numel() + 1)
+    assert torch.equal(hist.to(torch.int32), tsp.abs_histogram_rows_ref(a[None], e[None])[0])
+
+
+@pytest.mark.parametrize("kind", ["log", "linear", "ulp", "E2", "flat"])
+def test_one_step_each_way_is_exact_from_within_one_bucket(kind):
+    """The branch-free step: from any start within one bucket of the right
+    one (and in [1, E-1]), one compare down and one up land on it."""
+    e = _one_row_edges(kind)
+    a = _edge_cases(20_000, 13)
+    a = torch.cat([a, e, torch.nextafter(e, torch.zeros_like(e))])
+    want = (a[:, None] >= e[None, :]).sum(1)
+    mid = (a >= e[0]) & ~(a >= e[-1])
+    g = torch.Generator().manual_seed(3)
+    start = (want[mid] + torch.randint(-1, 2, (int(mid.sum()),), generator=g)).clamp(1, e.numel() - 1)
+    got, _ = _kernel_buckets(a, e, start)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pass_", ["coarse", "fine"])
+def test_the_paths_edges_take_the_one_step_rule(pass_):
+    """Both passes of the top-k threshold, on data like the path's, run
+    the branch-free rule (log start on the coarse edges, linear on the
+    fine ones), not the binary search."""
+    x = _rows(8, 50_000, 21)
+    edges = torch.tensor(_log_edges(x)) if pass_ == "coarse" else _fine_edges(x, 5000)
+    for r in range(8):
+        e = edges[r].contiguous()
+        a = torch.tensor(x[r]).abs()
+        got, mode = _kernel_buckets(a, e)
+        assert mode == ("log" if pass_ == "coarse" else "linear")
+        assert torch.equal(got, (a[:, None] >= e[None, :]).sum(1))
+
+
+def _hist_block_columns(p, mis, J):
+    """Columns each of a row's J blocks counts (csrc/sparsify.cu): a peel
+    up to the first (4 kVec)-byte boundary (the row starts ``mis`` floats
+    past one), vectors [V j / J, V (j+1) / J) of kVec floats, the tail."""
+    vec = _cu_const("kVec")
+    h = min((vec - mis % vec) % vec, p)
+    V = (p - h) // vec
+    tail = h + V * vec
+    out = []
+    for j in range(J):
+        cols = [np.arange(h + (V * j // J) * vec, h + (V * (j + 1) // J) * vec)]
+        if j == 0:
+            cols.append(np.arange(h))
+        if j == J - 1:
+            cols.append(np.arange(tail, p))
+        out.append(np.concatenate(cols))
+    return out
+
+
+def _hist_blocks_per_row(n, p, sms=132):
+    """blocks_per_row of csrc/sparsify.cu."""
+    want = _cu_const("kWaves") * (2048 // _cu_const("kThreads")) * sms
+    by_row = -(-(p // _cu_const("kVec")) // _cu_const("kMinVecs"))
+    return max(1, min(-(-want // n), by_row))
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4, 5, 7, 1001, 4096, 65537, 579_594])
+def test_kernel_grid_counts_every_column_once(p):
+    for n in (1, 3, 16, 1024):
+        J = _hist_blocks_per_row(n, p)
+        for mis in range(4):
+            cols = np.concatenate(_hist_block_columns(p, mis, J))
+            np.testing.assert_array_equal(np.sort(cols), np.arange(p))
+        for J2 in (1, 2, 7, 64, 283):  # any J, not only the one chosen
+            cols = np.concatenate(_hist_block_columns(p, 1, J2))
+            np.testing.assert_array_equal(np.sort(cols), np.arange(p))
+
+
+def test_kernel_grid_fills_the_card():
+    """At the path's shape the grid runs a few blocks per row; the flat
+    N=1 form runs hundreds of blocks, where one block per 8192 columns
+    ran 71."""
+    assert _hist_blocks_per_row(1024, 579_594) * 1024 >= 4 * 132
+    assert 200 <= _hist_blocks_per_row(1, 579_594) <= 2000
