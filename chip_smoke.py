@@ -33,10 +33,24 @@ Phases (any failure raises and the exit code is non-zero):
 8. secure path: the same engine with secure aggregation under churn
    (participation 0.9) with the seed-recovery pass, 8 rounds, launch counts
    (two keyed mask launches and one gather merge per round) and bytes asserted, then one profiled round and the share step alone;
-9. reference: the full-sharing and the secure engines on a small input, on
-   the card and on the CPU from the same parameters, must agree; for TopK
-   (int8) and CHOCO-SGD with the histogram selector, every share step of
-   the card's run, replayed on the CPU from the same inputs, must agree;
+8b. sampled kernels: the gather merge on a dynamic overlay's round table,
+   the payload merge on uniform random-k and on strided rows, the quantize
+   noise form on per-node Threefry uniforms and dequantize, over the whole
+   (1024, 579,594) state, with the uniform draw and the top-k sort timed;
+8c. dynamic, randomk and quant paths: the same engine over the dynamic
+   overlay (full sharing), with random-k sharing at a 10% budget (uniform
+   sampler, fp32 payloads) and with quantized sharing (stochastic
+   rounding), 8 rounds each, launch counts and bytes asserted, then one
+   profiled round and the share step alone, with its random draw and (for
+   random-k) its selection sort timed apart and the strided sampler's step;
+9. reference: the full-sharing, secure, dynamic, random-k, Nesterov
+   momentum and AdamW engines on a small input, on the card and on the CPU
+   from the same parameters, must agree; for TopK (int8) and CHOCO-SGD with
+   the histogram selector and for stochastic quantized sharing, every share
+   step of the card's run, replayed on the CPU from the same inputs and
+   key, must agree;
+9b. examples: ``repro_torch.topologies_dynamic`` and
+   ``repro_torch.sparsification`` on the card at ``--rounds 4``;
 10. lm-kernels: the sliding-window attention and SSD chunk kernels against
    their twins at the two language-model paths' shapes and a few others,
    with ``scaled_dot_product_attention`` under the same band mask as the
@@ -96,6 +110,10 @@ L2_EVICT_BYTES = 256 << 20  # a write over this many bytes clears the 50 MB L2
 YARDSTICK_KEYS = ("searchsorted_", "code_pass_")  # check()'s further yardsticks
 PASS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
              "device_recorded", "device_launched", "searchsorted_ms", "searchsorted_device_ms")
+# further checks of a kernel kept under its JSON entry: the fine histogram
+# pass, the quantize noise form, and the callers of the sampled strategies
+FORMS = ("fine_pass", "noise_form", "dynamic_table", "randk_rows", "strided_rows", "prng_noise",
+         "full_width")
 PROFILER_BOOKKEEPING = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
 PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_times' padding
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
@@ -875,7 +893,11 @@ def phase_secure_path():
 
 
 def main_path_engine(n, width, n_train, rounds, chunk, eval_every, device, init_params=None,
-                     **sharing):
+                     optimizer=("sgd", 0.05, {}), **sharing):
+    """The quickstart configuration (5-regular unless ``topology`` is
+    given, LAN model, 2 local steps of batch 8, GN-LeNet) with the sharing
+    and overlay knobs of ``sharing``; ``optimizer`` is ``make_optimizer``'s
+    (name, lr, kwargs)."""
     from repro_torch import DLConfig, RoundEngine
     from repro_torch.data import NodeBatcher, make_dataset, sharding_partition
     from repro_torch.models.cnn import cnn_init
@@ -885,11 +907,12 @@ def main_path_engine(n, width, n_train, rounds, chunk, eval_every, device, init_
     ds = make_dataset("cifar10", n_train=n_train, n_test=512)
     parts = sharding_partition(ds.train_y, n, shards_per_node=2, seed=0)
     batcher = NodeBatcher(ds.train_x, ds.train_y, parts, batch_size=8, seed=0)
-    dl = DLConfig(**{**dict(sharing="full"), **sharing}, n_nodes=n, topology="regular",
+    dl = DLConfig(**{**dict(sharing="full", topology="regular"), **sharing}, n_nodes=n,
                   degree=MAIN_DEG, local_steps=2, batch_size=8, rounds=rounds,
                   chunk_rounds=chunk, eval_every=eval_every, network="lan")
+    name, lr, okw = optimizer
     return RoundEngine(dl, lambda g: cnn_init(g, width=width), loss_fn, acc_fn,
-                       make_optimizer("sgd", 0.05), batcher,
+                       make_optimizer(name, lr, **okw), batcher,
                        init_params=init_params, device=device)
 
 
@@ -986,30 +1009,228 @@ def phase_topk_path():
     return launches, eng
 
 
-def time_share_step(eng, path, reps=3):
-    """Device-synchronised wall ms of the strategy's share step alone on
-    the engine's state, for the round after the profiled one, churn
-    reweight and key included (it advances the strategy state; run it
-    last)."""
+def phase_sampled_kernels():
+    """The kernels at the new callers' shapes and data, N=1024, P=579,594:
+    the gather merge on a dynamic overlay's round table (K=6), the payload
+    merge on uniform random-k rows (sorted after the stable top-k of
+    Threefry uniforms) and on strided rows over the padded width (fp32
+    wire, K=5, k=57,959), and the quantize kernel's noise form fed the
+    per-node uniforms of a stochastic quant round, with dequantize, over
+    the whole (N, P) state.  Also the uniform draw and the top-k sort
+    alone (torch ops, no kernel)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import prng
+    from repro_torch.core import sharing as sh
+    from repro_torch.core.topology import PeerSampler, SparseTopology, stage_rounds
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import scatter_gossip as sg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    n, p, k = MAIN_N, MAIN_P, MAIN_K
+    out = {}
+    X = torch.randn((n, p), generator=gen, device=dev)
+    rows, w = stage_rounds(PeerSampler(n, MAIN_DEG, 0).sparse_stack(3, 1), dev)[0].merge_tables()
+    out["dynamic_table"] = check(
+        f"gossip_mix_rows fp32 N={n} K={rows.shape[1]} P={p} dynamic round table",
+        lambda: gm.gossip_mix_rows(X, rows, w), lambda: gm.gossip_mix_rows_ref(X, rows, w),
+        None, merge_bound_ms(n, rows.shape[1], p, 4, n), tol=1e-5)
+
+    key = prng.fold_in(prng.key(17), 3)
+    keys = sh._node_keys(key, n, dev)
+    draw_ms = wall_ms(lambda: sh._randk_uniforms(key, (n, p), dev))
+    u = sh._randk_uniforms(key, (n, p), dev)
+    sort_ms = wall_ms(lambda: sh._randk_select(u, k))
+    idx = sh._randk_select(u, k)
+    calls = n * p
+    print(f"[kernel] uniform draw (torch ops) N={n} P={p}: {calls} Threefry calls, wall ms "
+          f"{draw_ms}; stable top-k sort and row sort k={k}: wall ms {sort_ms}", flush=True)
+    out["draw_ms"], out["sort_ms"] = draw_ms, sort_ms
+    st = SparseTopology.regular_circulant(n, MAIN_DEG).to(dev)
+    rows5, w5 = st.merge_tables(include_self=False)
+    val = X.gather(1, idx.long())
+    out["randk_rows"] = check(
+        f"payload_mix_rows fp32 wire random-k uniform rows N={n} P={p} K=5 k={k}",
+        lambda: sg.payload_mix_rows(X, idx, val, rows5, w5, sorted_idx=True),
+        lambda: sg.payload_mix_rows_ref(X, idx, val, rows5, w5), None,
+        payload_bound(n, p, n, k, 5))
+    del u, idx, val
+    stride = -(-p // k)
+    Xp = F.pad(X, (0, k * stride - p))
+    phase = sh._strided_phase(key, n, stride, dev)
+    sidx = (torch.arange(k, dtype=torch.int32, device=dev)[None] * stride + phase[:, None])
+    sval = Xp.gather(1, sidx.long())
+    out["strided_rows"] = check(
+        f"payload_mix_rows fp32 wire strided rows N={n} P={k * stride} K=5 k={k} stride={stride}",
+        lambda: sg.payload_mix_rows(Xp, sidx, sval, rows5, w5, sorted_idx=True),
+        lambda: sg.payload_mix_rows_ref(Xp, sidx, sval, rows5, w5), None,
+        payload_bound(n, k * stride, n, k, 5))
+    del Xp, sidx, sval
+    noise_ms = wall_ms(lambda: prng.uniform(keys, (p,)))
+    noise = prng.uniform(keys, (p,))
+    print(f"[kernel] stochastic rounding noise (torch ops) N={n} P={p}: wall ms {noise_ms}",
+          flush=True)
+    out["noise_ms"] = noise_ms
+    out["prng_noise"] = check(
+        f"quantize noise N={n} C={p} prng.uniform per-node noise",
+        lambda: q.quantize(X, noise), lambda: q.quantize_ref(X, noise), None,
+        codec_bound(n, p, True))
+    codes, scale = q.quantize(X, noise)
+    del noise
+    out["full_width"] = check(
+        f"dequantize N={n} C={p}", lambda: q.dequantize(codes, scale),
+        lambda: q.dequantize_ref(codes, scale), None, codec_bound(n, p, False))
+    del X, codes, scale
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dynamic_path():
+    """Full sharing over the dynamic overlay (a new random 5-regular graph
+    every round): one gather-merge launch per round, on that round's own
+    table, bytes as the static overlay's; at least two rounds' tables
+    differ."""
     import torch
 
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+                           topology="dynamic")
+    print(f"[dynamic] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
+          f"mix_mode={eng.mix_mode}", flush=True)
+    staged = []
+    stage = eng.scheduler.stage_topology
+
+    def recording_stage(start, n_rounds):
+        ops = stage(start, n_rounds)
+        staged.extend(W.merge_tables()[0].clone() for W, _ in ops)
+        return ops
+
+    eng.scheduler.stage_topology = recording_stage
+    rounds = eng.dl.rounds
+    _, launches = drive_path("dynamic", eng, {"gossip_mix_rows": rounds})
+    eng.scheduler.stage_topology = stage
+    want_bytes = rounds * MAIN_DEG * MAIN_P * 4
+    differ = sum(not torch.equal(staged[0], t) for t in staged[1:])
+    print(f"[dynamic] bytes_sent={eng.bytes_sent} (want {want_bytes}); {len(staged)} round "
+          f"tables staged, {differ} differ from round 0's; topo_stage_bytes_peak="
+          f"{eng.topo_stage_bytes_peak}", flush=True)
+    if eng.bytes_sent != want_bytes or len(staged) != rounds or differ < 1:
+        raise AssertionError("dynamic path: bytes, or the per-round tables, are wrong")
+    return launches, eng
+
+
+def phase_randomk_path():
+    """Random-k sharing at a 10% budget (k = 57,959), uniform sampler, fp32
+    payloads: one payload-merge launch per round (the self slot dropped,
+    K=5) and no other kernel; the strided sampler's share step timed
+    apart (stride 11, a 1-byte phase)."""
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+                           sharing="randomk", budget=0.1)
+    print(f"[randomk] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
+          f"k={MAIN_K} wire={eng.wire_dtype} share_stage_bytes={eng.share_stage_bytes}",
+          flush=True)
+    rounds = eng.dl.rounds
+    _, launches = drive_path("randomk", eng, {"payload_mix_rows": rounds})
+    want_bytes = rounds * MAIN_DEG * MAIN_K * 8
+    if eng.bytes_sent != want_bytes:
+        raise AssertionError(f"bytes_sent {eng.bytes_sent} != {want_bytes}")
+    return launches, eng
+
+
+def phase_quant_path():
+    """Quantized full sharing with stochastic rounding: per round one
+    quantize launch (noise form, per-node uniforms), one dequantize and one
+    gather merge, and no other kernel; bytes P + 4 per neighbour."""
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+                           sharing="quant")
+    print(f"[quant] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
+          f"wire={eng.wire_dtype} share_stage_bytes={eng.share_stage_bytes}", flush=True)
+    rounds = eng.dl.rounds
+    _, launches = drive_path("quant", eng, {"quantize": rounds, "dequantize": rounds,
+                                            "gossip_mix_rows": rounds})
+    want_bytes = rounds * MAIN_DEG * (MAIN_P + 4)
+    if eng.bytes_sent != want_bytes:
+        raise AssertionError(f"bytes_sent {eng.bytes_sent} != {want_bytes}")
+    return launches, eng
+
+
+def time_sampled_share_step(eng, path):
+    """The share step alone, then its random draw and (random-k) its
+    selection sort alone, on the engine's state; for random-k also the
+    strided sampler's share step (stride 11, a 1-byte phase)."""
+    import dataclasses as dc
+
+    from repro_torch import prng
+    from repro_torch.core import sharing as sh
+
+    times = {"share": time_share_step(eng, path)}
     rnd = eng.dl.rounds + 1
+    key = prng.fold_in(eng.steps.base_key, rnd)
+    n, p = eng.X.shape
+    if path == "randomk":
+        times["draw"] = wall_ms(lambda: sh._randk_uniforms(key, (n, p), eng.device))
+        u = sh._randk_uniforms(key, (n, p), eng.device)
+        times["sort"] = wall_ms(lambda: sh._randk_select(u, MAIN_K))
+        del u
+        strided = dc.replace(eng.sharing, sampler="strided")
+        times["strided_share"] = time_share_step(eng, path, strategy=strided,
+                                                 label="strided sampler share step alone")
+    else:
+        keys = sh._node_keys(key, n, eng.device)
+        times["draw"] = wall_ms(lambda: prng.uniform(keys, (p,)))
+    print(f"[{path}] share step breakdown (wall ms, synchronised): {times}", flush=True)
+    return times
+
+
+def share_operands(eng, rnd):
+    """The share step's operands of round ``rnd`` as the scheduler stages
+    them (the dynamic overlay's own table of that round), churn reweight
+    and key included: (W, degree, key, kwargs)."""
+    import torch
+
     act = None
     if eng.dl.participation < 1.0:
         act_np = eng.scheduler.participation_mask(rnd, 1)[0]
         act = (torch.as_tensor(act_np, device=eng.device), act_np)
-    W, deg, key, kw = eng.steps.share_operands(eng._mix_static, rnd, act)
+    W, live = eng.scheduler.stage_topology(rnd, 1)[0]
+    return eng.steps.share_operands(W, rnd, act, live)
+
+
+def wall_ms(fn, reps=3):
+    """Device-synchronised wall milliseconds of ``reps`` calls of ``fn``."""
+    import torch
+
     times = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     for _ in range(reps):
         torch.cuda.synchronize()
         t = time.time()
-        eng.sharing.round(eng.X, W, eng.share_state, key=key, degree=deg, rnd=rnd, **kw)
+        fn()
         torch.cuda.synchronize()
         times.append((time.time() - t) * 1e3)
-    print(f"[{path}] share step alone (wall ms, synchronised): {times}; its peak "
+    return times
+
+
+def time_share_step(eng, path, reps=3, strategy=None, label="share step alone"):
+    """Device-synchronised wall ms of the strategy's (or ``strategy``'s)
+    share step alone on the engine's state, for the round after the
+    profiled one, churn reweight and key included (it advances the
+    strategy state; run it last)."""
+    import torch
+
+    rnd = eng.dl.rounds + 1
+    W, deg, key, kw = share_operands(eng, rnd)
+    strategy = strategy or eng.sharing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = wall_ms(lambda: strategy.round(eng.X, W, eng.share_state, key=key, degree=deg,
+                                           rnd=rnd, **kw), reps)
+    print(f"[{path}] {label} (wall ms, synchronised): {times}; its peak "
           f"max_memory_allocated={torch.cuda.max_memory_allocated()} B", flush=True)
+    return times
 
 
 def phase_profile(eng, path):
@@ -1059,7 +1280,7 @@ def profile_call(label, fn):
 
 class Recorder:
     """A strategy that keeps a CPU copy of each round's share-step inputs
-    and outputs (X, state, X', state', bytes)."""
+    and outputs (X, state, key, X', state', bytes)."""
 
     def __init__(self, inner):
         self.inner, self.log = inner, []
@@ -1068,46 +1289,66 @@ class Recorder:
         return getattr(self.inner, name)
 
     def round(self, X, W, state, key=None, degree=1.0, rnd=0):
-        cpu = lambda st: {k: v.cpu().clone() for k, v in st.items()}
-        before = (X.cpu().clone(), cpu(state))
+        cpu = lambda st: {k: v.cpu().clone() for k, v in st.items()} if st else st
+        before = (X.cpu().clone(), cpu(state), key)
         X2, state, nbytes = self.inner.round(X, W, state, key=key, degree=degree, rnd=rnd)
         self.log.append((*before, X2.cpu().clone(), cpu(state), nbytes))
         return X2, state, nbytes
 
 
+# AdamW's step m / (sqrt(v) + eps) maps a gradient of 1e-12 to a step of
+# order lr at a small eps, so an fp32 rounding of a near-zero gradient
+# (cuDNN's against the CPU's) moves a parameter by ~lr; eps = 1e-3 keeps
+# the step Lipschitz in the gradient (tests/test_torch_optim.py says the
+# same of its engine run)
+REFERENCE_CASES = (  # (label, engine knobs, "whole" run or share-step "replay")
+    ("full", dict(sharing="full"), "whole"),
+    ("secure", SECURE_CFG, "whole"),
+    ("topk", dict(sharing="topk", budget=0.1, payload_quant=True), "replay"),
+    ("choco", dict(sharing="choco", budget=0.1), "replay"),
+    ("dynamic", dict(topology="dynamic"), "whole"),
+    ("randomk", dict(sharing="randomk", budget=0.1), "whole"),
+    ("quant", dict(sharing="quant"), "replay"),
+    ("momentum", dict(optimizer=("momentum", 0.05, dict(nesterov=True))), "whole"),
+    ("adamw", dict(optimizer=("adamw", 0.01, dict(eps=1e-3))), "whole"),
+)
+
+
 def phase_reference():
     """At N=16, width 8, 2 rounds, on the card and on the CPU (plain
-    twins, CPU convolutions) from one set of parameters: full sharing and
-    secure aggregation under churn with recovery must agree after the run,
-    with equal bytes and fault counters.  TopK (int8) and CHOCO-SGD, both with the
-    histogram selector: every share step of the card's run, replayed on the
-    CPU from the same inputs, must agree, and so must the bytes.  (Across
-    whole runs the compressed strategies are discontinuous: a fp32
-    rounding of local training can move a coordinate across the top-k
-    threshold or an int8 code boundary.  Their whole-run difference is
-    printed.)"""
+    twins, CPU convolutions) from one set of parameters: full sharing,
+    secure aggregation under churn with recovery, the dynamic overlay,
+    uniform random-k (its indices come from keys, not from X, so its run is
+    continuous), and Nesterov momentum and AdamW on full sharing must agree
+    after the run within 1e-4, with equal bytes and fault counters.  TopK
+    (int8) and CHOCO-SGD, both with the histogram selector, and quantized
+    sharing with stochastic rounding: every share step of the card's run,
+    replayed on the CPU from the same inputs and key, must agree within
+    1e-4, and so must the bytes.  (Across whole runs these are
+    discontinuous: a fp32 rounding of local training can move a coordinate
+    across the top-k threshold or an int8 code boundary, floor(y + u)'s
+    included.  Their whole-run difference is printed.)"""
     import torch
     from repro_torch.core.engine import make_strategy
     from repro_torch.utils.pytree import tree_map
 
-    for sharing in (dict(sharing="full"), SECURE_CFG,
-                    dict(sharing="topk", budget=0.1, payload_quant=True),
-                    dict(sharing="choco", budget=0.1)):
+    for label, knobs, mode in REFERENCE_CASES:
         gpu = main_path_engine(16, 8, 2048, rounds=2, chunk=2, eval_every=1, device="cuda",
-                               **sharing)
+                               **knobs)
         init = tree_map(lambda a: a.cpu().clone(), gpu.params)
         cpu = main_path_engine(16, 8, 2048, rounds=2, chunk=2, eval_every=1, device="cpu",
-                               init_params=init, **sharing)
-        full = sharing.get("sharing", "full") == "full"
+                               init_params=init, **knobs)
+        full = mode == "whole"
         if not full:
-            rec = Recorder(dataclasses.replace(gpu.sharing, selector="hist"))
+            hist = {"selector": "hist"} if label in ("topk", "choco") else {}
+            rec = Recorder(dataclasses.replace(gpu.sharing, **hist))
             gpu.sharing = gpu.steps.sharing = rec
-            cpu.sharing = cpu.steps.sharing = dataclasses.replace(cpu.sharing, selector="hist")
+            cpu.sharing = cpu.steps.sharing = dataclasses.replace(cpu.sharing, **hist)
         gpu.run(log=False)
         cpu.run(log=False)
         diff = float((gpu.X.cpu() - cpu.X).abs().max())
-        print(f"[reference] {sharing}: N=16 width 8, 2 rounds: max |X_gpu - X_cpu| = {diff}; "
-              f"bytes gpu={gpu.bytes_sent} cpu={cpu.bytes_sent}; "
+        print(f"[reference] {label} {knobs}: N=16 width 8, 2 rounds: max |X_gpu - X_cpu| = "
+              f"{diff}; bytes gpu={gpu.bytes_sent} cpu={cpu.bytes_sent}; "
               f"sim_time_s gpu={gpu.sim_time_s} cpu={cpu.sim_time_s}", flush=True)
         if gpu.bytes_sent != cpu.bytes_sent or gpu.history[-1].keys() != cpu.history[-1].keys():
             raise AssertionError("bytes_sent or the history keys differ between card and CPU")
@@ -1117,18 +1358,49 @@ def phase_reference():
             if not diff <= 1e-4:
                 raise AssertionError(f"card and CPU disagree: {diff}")
             continue
-        strategy = dataclasses.replace(make_strategy(cpu.dl), selector="hist")
-        for r, (X, state, X2, state2, nbytes) in enumerate(rec.log):
-            X2c, state2c, nbc = strategy.round(X, cpu._mix_static, state, key=None,
+        strategy = dataclasses.replace(make_strategy(cpu.dl), **hist)
+        for r, (X, state, key, X2, state2, nbytes) in enumerate(rec.log):
+            X2c, state2c, nbc = strategy.round(X, cpu._mix_static, state, key=key,
                                                degree=cpu._mean_degree)
             d = max([float((X2 - X2c).abs().max())]
                     + [float((state2[k] - state2c[k]).abs().max()) for k in state2])
-            print(f"[reference] {sharing['sharing']} round {r}: share step card vs CPU "
+            print(f"[reference] {label} round {r}: share step card vs CPU "
                   f"from the same inputs: max diff {d}", flush=True)
             if not d <= 1e-4 or nbc != nbytes:
                 raise AssertionError(f"share step card and CPU disagree: {d}, {nbytes} vs {nbc}")
         if len(rec.log) != 2:
             raise AssertionError(f"{len(rec.log)} share steps recorded, want 2")
+
+
+def phase_examples():
+    """The two study entry points as a user runs them on the card, at
+    ``--rounds 4`` (16 nodes, the MLP): ``repro_torch.topologies_dynamic``
+    (ring, 5-regular, fully connected, dynamic) and
+    ``repro_torch.sparsification`` (full, random-k, TopK, CHOCO-SGD at a
+    10% budget), each with the accuracy and MB/node it prints and the
+    kernel launches of its run; the sparse overlays must reach the gather
+    merge and the payload strategies the payload merge."""
+    import math
+
+    from repro_torch import sparsification, topologies_dynamic
+
+    res = {}
+    for name, mod, must in (("topologies_dynamic", topologies_dynamic, ("gossip_mix_rows",)),
+                            ("sparsification", sparsification,
+                             ("gossip_mix_rows", "payload_mix_rows", "abs_histogram_rows"))):
+        reset_launches()
+        t = time.time()
+        out = mod.main(["--rounds", "4"])
+        launches = read_launches()
+        print(f"[examples] {name} --rounds 4 in {time.time() - t:.2f} s: "
+              + ", ".join(f"{k} acc {a:.4f} MB/node {b / 1e6:.3f}" for k, (a, b) in out.items())
+              + f"; launches={launches}", flush=True)
+        if not all(math.isfinite(a) and b > 0 for a, b in out.values()):
+            raise AssertionError(f"{name}: non-finite accuracy or nothing sent: {out}")
+        if any(launches[k] == 0 for k in must):
+            raise AssertionError(f"{name}: a kernel of {must} was not launched: {launches}")
+        res[name] = out
+    return res
 
 
 SERVE_B, SERVE_S, SERVE_NEW = 8, 4096, 32   # path A: requests, prompt tokens, new tokens
@@ -1512,8 +1784,8 @@ def main():
 
     checks = phase_kernels()
     checks.update(phase_compressed_kernels())
-    launches, eng = phase_main_path()
-    launches = {"gossip_mix_rows": launches["gossip_mix_rows"]}
+    launches_main, eng = phase_main_path()
+    launches = {"gossip_mix_rows": launches_main["gossip_mix_rows"]}
     phase_profile(eng, "main")
     del eng
     release()
@@ -1531,7 +1803,22 @@ def main():
     time_share_step(eng, "secure")
     del eng
     release()
+    sampled = phase_sampled_kernels()
+    release()
+    by_path = {"main": launches_main, "topk": topk_launches, "secure": secure_launches}
+    for path, run in (("dynamic", phase_dynamic_path), ("randomk", phase_randomk_path),
+                      ("quant", phase_quant_path)):
+        by_path[path], eng = run()
+        phase_profile(eng, path)
+        if path == "dynamic":
+            time_share_step(eng, path)
+        else:
+            time_sampled_share_step(eng, path)
+        del eng
+        release()
     phase_reference()
+    release()
+    phase_examples()
     release()
     checks.update(phase_lm_kernels())
     serve_launches = phase_serve()
@@ -1542,7 +1829,13 @@ def main():
     release()
     phase_lm_reference()
 
+    by_path.update({"entry": entry_launches, "serve": serve_launches, "forward": forward_launches})
     checks["gossip_mix_rows"] = checks.pop("main")
+    checks["gossip_mix_rows"]["dynamic_table"] = sampled["dynamic_table"]
+    checks["payload_mix_rows"]["randk_rows"] = sampled["randk_rows"]
+    checks["payload_mix_rows"]["strided_rows"] = sampled["strided_rows"]
+    checks["quantize"]["prng_noise"] = sampled["prng_noise"]
+    checks["dequantize"]["full_width"] = sampled["full_width"]
     launches["swa_attention_gqa"] = serve_launches["swa_attention_gqa"]
     launches["ssd_chunk"] = forward_launches["ssd_chunk"]
     launches.update({k: v for k, v in topk_launches.items()
@@ -1583,7 +1876,10 @@ def main():
             **{k: v for k, v in c.items() if k.startswith(YARDSTICK_KEYS)},
             **{k: v for k, v in c.items() if k.startswith("device_evicted") or k == "device_l2"},
             **{form: {k: c[form][k] for k in PASS_KEYS if k in c[form]}
-               for form in ("fine_pass", "noise_form") if form in c},
+               for form in FORMS if form in c},
+            # the launches of every path's run that launched this kernel
+            "launches_by_path": {path: counts[kernel] for path, counts in by_path.items()
+                                 if counts.get(kernel)},
         })
     print(f"[done] all phases passed in {time.time() - t_start:.1f} s", flush=True)
     print(smi, flush=True)

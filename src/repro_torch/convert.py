@@ -27,3 +27,13 @@ def params_from_jax(tree, device="cpu") -> Dict:
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
     return _leaf(tree, device)
+
+
+def mlp_params_from_jax(tree, device="cpu") -> Dict:
+    """The JAX package's ``models/mlp.py`` parameters (fc1..fc3, each a
+    (in, out) weight ``w`` and a bias ``b``; node-stacked or not) as
+    ``models/mlp.py``'s tensors on ``device``, bitwise."""
+    want = {"fc1", "fc2", "fc3"}
+    if set(tree) != want or any(set(tree[k]) != {"w", "b"} for k in want):
+        raise ValueError(f"not an MLP parameter tree: {sorted(tree)}")
+    return params_from_jax(tree, device)

@@ -1,2 +1,3 @@
 from repro_torch.core.engine import DLConfig, RoundEngine
-from repro_torch.core.topology import Graph, SparseTopology
+from repro_torch.core.node import DecentralizedRunner, build_graph
+from repro_torch.core.topology import Graph, PeerSampler, SparseTopology

@@ -9,12 +9,16 @@ sharing strategy — for a sparse overlay, one launch of the fused
 gather-merge kernel (``kernels/gossip_mix.py``).  The dataset lives on
 the device and each round's batches are gathered there by index.
 
-The port covers the synchronous scheduler on one device with full
-sharing, the magnitude-selected compressed sharing (TopK, CHOCO-SGD;
-payload wire on or off, int8 payload codec) and secure aggregation (with
-the seed-recovery pass under churn); churn (per-round participation
-masks, node- or machine-level) with full sharing and secure aggregation;
-no fault injection.  ``DLConfig.validate()`` raises
+The port covers the synchronous scheduler on one device over static
+overlays and the dynamic one (a new random d-regular graph every round,
+``PeerSampler``); full and quantized full sharing, the sparsified
+strategies (random-k with either sampler, TopK, CHOCO-SGD with either
+compressor; payload wire on or off, int8 payload codec) and secure
+aggregation (with the seed-recovery pass under churn); churn (per-round
+participation masks, node- or machine-level) with full sharing and
+secure aggregation; per-node learning-rate multipliers; checkpoints of
+the engine state (``save_state``/``load_state``, in the JAX package's
+file format); no fault injection.  ``DLConfig.validate()`` raises
 ``NotImplementedError`` for every knob outside it.
 
 Device and numerics: the engine runs on the card (``device=None`` means
@@ -47,9 +51,13 @@ from repro_torch.core.network import (
 from repro_torch.core.scheduler import make_scheduler
 from repro_torch.core.secure import SecureAggregation
 from repro_torch.core.steps import RoundSteps
-from repro_torch.core.topology import Graph, SparseTopology
+from repro_torch.core.topology import Graph, PeerSampler, SparseTopology
 from repro_torch.optim import Optimizer
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unvector, tree_vector
+
+# cap on the (R, N, N) mixing-matrix stack one span of a dense dynamic
+# topology stages; such spans shrink at large N (sparse stacks are exempt)
+_W_STACK_BYTES_CAP = 64 * 1024 * 1024
 
 # above this node count, circulant topologies build the sparse table
 # directly instead of the dense (N, N) Graph (tables are bitwise equal)
@@ -151,7 +159,7 @@ class DLConfig:
         if self.semantics in ("local", "async"):
             todo(f"semantics={self.semantics!r}")
         if not sharing_lib.is_full_sharing(self.sharing):
-            sharing_lib.make_sharing(self.sharing)  # not ported, or unknown
+            sharing_lib.make_sharing(self.sharing)  # an unknown name raises
         if self.participation < 1.0 and not (self.secure or sharing_lib.is_full_sharing(self.sharing)):
             # TopK's last_shared and CHOCO's x̂ are updated in place; a down
             # node's would have to be restored
@@ -164,8 +172,6 @@ class DLConfig:
             todo("the async cohort path (cohort_capacity > 0)")
         if self.backend == "processes":
             todo("backend='processes'")
-        if self.topology == "dynamic":
-            todo("topology='dynamic'")
         if self.batch_keying == "node":
             todo("batch_keying='node'")
 
@@ -239,6 +245,8 @@ def build_graph(cfg: DLConfig) -> Optional[Graph]:
         return Graph.fully_connected(cfg.n_nodes)
     if t == "star":
         return Graph.star(cfg.n_nodes)
+    if t == "dynamic":
+        return None  # a new graph every round (PeerSampler)
     if t.startswith("file:"):
         return Graph.from_edge_list(t[5:], cfg.n_nodes)
     raise ValueError(f"unknown topology {t!r}")
@@ -305,7 +313,8 @@ class RoundEngine:
     ``convert.params_from_jax`` returns) replaces those draws.
     loss_fn(params, batch_x, batch_y) -> scalar    (single node)
     acc_fn(params, batch_x, batch_y) -> scalar     (single node)
-    heterogeneous_lrs (per-node learning-rate multipliers) is not ported.
+    heterogeneous_lrs: optional (N,) per-node learning-rate multipliers
+    applied to each node's optimizer updates.
     """
 
     def __init__(
@@ -322,8 +331,6 @@ class RoundEngine:
         device=None,
     ):
         dl.validate()
-        if heterogeneous_lrs is not None:
-            raise NotImplementedError("heterogeneous_lrs is not ported yet")
         self.device = dev = resolve_device(device)
         if dev.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -334,6 +341,12 @@ class RoundEngine:
         self.opt = optimizer
         self.batcher = batcher
         n = dl.n_nodes
+        self.lr_scales = None
+        if heterogeneous_lrs is not None:
+            lrs = np.asarray(heterogeneous_lrs, np.float32)
+            if lrs.shape != (n,):
+                raise ValueError(f"heterogeneous_lrs must be (n_nodes,) = ({n},), got {lrs.shape}")
+            self.lr_scales = torch.as_tensor(lrs, device=dev)
         self.X = self._init_state(init_params_fn, init_params)
         self.opt_state = self.opt.init(self.params)
         self.n_params = int(self.X.shape[1])
@@ -346,6 +359,8 @@ class RoundEngine:
             and dl.mixing != "dense"
         )
         self.graph = None if circulant_direct else build_graph(dl)
+        self.sampler = (PeerSampler(n, dl.degree, dl.seed) if dl.topology == "dynamic"
+                        else None)
         if dl.secure:
             self.sharing = SecureAggregation(self.graph.adj, recovery=dl.secure_recovery)
         else:
@@ -354,7 +369,14 @@ class RoundEngine:
         self.wire_dtype = self.sharing.wire_dtype(self.X.dtype)
         self.share_stage_bytes = int(self.sharing.stage_bytes_per_round(n, self.n_params))
         self.mix_mode = self._resolve_mix_mode()
-        if self.graph is not None:
+        # peak host->device bytes of the mixing topology: staged once for a
+        # static overlay, per span for the dynamic one (scheduler)
+        self.topo_stage_bytes_peak = 0
+        live_edges = None
+        if self.sampler is not None:
+            self._mix_static = None
+            self._mean_degree = float(dl.degree)  # the sampler is d-regular
+        elif self.graph is not None:
             self._mean_degree = float(self.graph.degrees().mean())
             if self.mix_mode == "sparse":
                 st = SparseTopology.from_graph(self.graph)
@@ -367,7 +389,7 @@ class RoundEngine:
             deg = 2 if dl.topology == "ring" else dl.degree
             st = SparseTopology.regular_circulant(n, deg)
             self._mean_degree = float(st.dmax)
-        if self.mix_mode == "sparse":
+        if self.mix_mode == "sparse" and self.sampler is None:
             self._mix_static = st.to(dev)
             self.topo_stage_bytes_peak = st.stage_bytes()
             live_edges = (st.nbr, st.w > 0)
@@ -384,6 +406,8 @@ class RoundEngine:
         self._dev_x = torch.as_tensor(batcher.x, device=dev)
         self._dev_y = torch.as_tensor(batcher.y, device=dev).long()
         self.chunk = max(dl.chunk_rounds, 1)
+        if self.sampler is not None and self.mix_mode == "dense":
+            self.chunk = max(1, min(self.chunk, _W_STACK_BYTES_CAP // (4 * n * n)))
         self.steps = RoundSteps(
             loss_fn=loss_fn,
             opt=optimizer,
@@ -396,11 +420,15 @@ class RoundEngine:
             goodput=self._goodput,
             base_key=prng.key(dl.seed + 17),
             live_edges=live_edges,
+            lr_scales=self.lr_scales,
         )
         self.scheduler = make_scheduler(self)
         self.history: List[Dict] = []
         self.bytes_sent = 0.0
         self.sim_time_s = 0.0
+        # the round run() starts from: load_state() moves it to the
+        # checkpointed round
+        self._start_round = 0
         self.rounds_done = 0
 
     def _init_state(self, init_params_fn, init_params) -> torch.Tensor:
@@ -481,7 +509,7 @@ class RoundEngine:
         ty = torch.as_tensor(ty, device=self.device).long()
         ev = max(dl.eval_every, 1)
         t0 = time.time()
-        rnd = 0
+        rnd = self._start_round
         while rnd < rounds:
             nxt = -(-rnd // ev) * ev  # next eval round >= rnd
             if nxt >= rounds:
@@ -492,9 +520,37 @@ class RoundEngine:
                 self.scheduler.run_span(rnd, r)
                 rnd += r
             self._record(nxt, tx, ty, t0, log)
-        self.rounds_done = rounds
+        self.rounds_done = max(rounds, self._start_round)
         self._dump_results()
         return self.history
+
+    # Batches are keyed by the absolute round and sharing draws by
+    # fold_in(base_key, round), so restoring (params, opt_state,
+    # share_state) and the round cursor continues the uninterrupted run.
+    def save_state(self, path: str, step: Optional[int] = None) -> str:
+        """Checkpoint the node-stacked engine state and the round cursor
+        into the directory ``path`` (``checkpoint.save_checkpoint``'s
+        format, the JAX package's).  Returns the checkpoint file."""
+        from repro_torch.checkpoint import save_checkpoint
+
+        step = self.rounds_done if step is None else step
+        return save_checkpoint(path, step, params=self.params, opt_state=self.opt_state,
+                               share_state=self.share_state)
+
+    def load_state(self, path: str, step: Optional[int] = None) -> int:
+        """Restore a checkpoint of either package (the latest in ``path``
+        unless ``step`` names one) and set ``run()`` to continue from its
+        round.  Returns the step."""
+        from repro_torch.checkpoint import load_checkpoint, restore_tree
+
+        step, trees = load_checkpoint(path, step)
+        params = restore_tree(self.params, trees.get("params"))
+        n = self.dl.n_nodes
+        self.X = torch.cat([l.reshape(n, -1).to(torch.float32) for l in tree_leaves(params)], 1)
+        self.opt_state = restore_tree(self.opt_state, trees.get("opt_state"))
+        self.share_state = restore_tree(self.share_state, trees.get("share_state"))
+        self._start_round = self.rounds_done = int(step)
+        return int(step)
 
     def _dump_results(self):
         """Per-run JSON results: the config and the history."""

@@ -14,6 +14,9 @@ weights.
   sender's payload row by index, so the (N, D, k) operand stacks of the
   JAX package's ``_payload_operands`` are never built; on a dense W the
   dense-mask oracle :func:`mix_payload_masked`.
+* :func:`mix_payload_strided` — the same for the strided random-k
+  sampler's payloads (one phase per node), through the payload-merge
+  kernel on the rebuilt index rows.
 
 Summation order: the kernel adds the self slot first and then the
 neighbour slots in order; the JAX ``apply_W`` adds ``w_self * x`` after the
@@ -90,6 +93,25 @@ def mix_payload(W, idx, val, X, *, exact_values: bool = True, sorted_idx: bool =
         rows, w = W.merge_tables(include_self=not exact_values)
         return payload_mix_rows(Xf, idx.to(torch.int32), valf, rows, w, sorted_idx=sorted_idx)
     return mix_payload_masked(W, idx, valf, Xf)
+
+
+def mix_payload_strided(W, phase, val, X, *, exact_values: bool = True):
+    """Strided-payload aggregation: sender n's payload is its value at
+    offset ``phase[n]`` of each of the k cells of width ``stride`` of X
+    (the caller pads P up to k·stride), idx = i·stride + phase_n.
+
+    phase (N,) int32 in [0, stride); val (N, k); X (N, k·stride).  The
+    index rows are rebuilt and go through :func:`mix_payload` as rows
+    sorted by construction (one payload-merge launch on a
+    ``SparseTopology``, the dense-mask oracle on a dense W).  The JAX
+    package applies each payload as one column update of a (stride, k)
+    cell view; the sums are the same up to fp32 summation order.
+    """
+    k = val.shape[1]
+    stride = X.shape[1] // k
+    idx = (torch.arange(k, dtype=torch.int32, device=X.device)[None, :] * stride
+           + phase.to(torch.int32)[:, None])
+    return mix_payload(W, idx, val, X, exact_values=exact_values, sorted_idx=True)
 
 
 def _scatter_rows(idx, val, shape):

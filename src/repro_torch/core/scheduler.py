@@ -10,10 +10,12 @@ the trajectory and the totals do not depend on it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core.topology import stage_rounds
 
 # the reference's fault-counter schema (its core/faults.py STAT_KEYS): the
 # history keys a run with secure recovery reports
@@ -83,8 +85,34 @@ class SyncScheduler:
         idx = eng.batcher.chunk_indices(start, n_rounds, eng.dl.local_steps)
         return torch.as_tensor(idx, device=eng.device).long()
 
+    def stage_topology(self, start: int, n_rounds: int) -> List[Tuple[object, Optional[tuple]]]:
+        """Each round's mixing operand for rounds [start, start+n_rounds)
+        and, for the dynamic overlay, the host form of its edges
+        ``(nbr, live)`` (``sharing.participation_deg_eff``'s operands;
+        None for a static overlay, whose edges the step layer holds).  The
+        dynamic overlay stages the span's (R, N, D) tables, or with dense
+        mixing its (R, N, N) W stack, in one copy and records the peak in
+        ``eng.topo_stage_bytes_peak``."""
+        eng = self.eng
+        if eng.sampler is None:
+            return [(eng._mix_static, None)] * n_rounds
+        if eng.mix_mode == "sparse":
+            st = eng.sampler.sparse_stack(start, n_rounds)
+            staged = st.stage_bytes()
+            ops = [(W, (st.nbr[r], st.w[r] > 0))
+                   for r, W in enumerate(stage_rounds(st, eng.device))]
+        else:
+            Wst = eng.sampler.weights_stack(start, n_rounds)
+            staged = int(Wst.nbytes)
+            off = 1.0 - np.eye(Wst.shape[1], dtype=np.float32)
+            Wd = torch.as_tensor(Wst, device=eng.device)
+            ops = [(Wd[r], (None, Wst[r] * off > 0)) for r in range(n_rounds)]
+        eng.topo_stage_bytes_peak = max(eng.topo_stage_bytes_peak, staged)
+        return ops
+
     def run_span(self, start: int, n_rounds: int) -> None:
         eng = self.eng
+        topo = self.stage_topology(start, n_rounds)
         idx = self._stage_indices(start, n_rounds)
         act_np = act_dev = None
         if eng.dl.participation < 1.0:
@@ -95,9 +123,9 @@ class SyncScheduler:
             bx = eng._dev_x[idx[r]]  # (L, N, B, ...)
             by = eng._dev_y[idx[r]]
             act = None if act_np is None else (act_dev[r], act_np[r])
+            W, live = topo[r]
             eng.X, eng.opt_state, eng.share_state, nb, t, rec = eng.steps.train_and_mix(
-                eng.X, eng.opt_state, eng.share_state, bx, by, eng._mix_static,
-                start + r, act,
+                eng.X, eng.opt_state, eng.share_state, bx, by, W, start + r, act, live,
             )
             nbytes.append(nb)
             times.append(t)

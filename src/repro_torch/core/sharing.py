@@ -3,15 +3,17 @@
 Strategies act on the node-stacked flat parameter matrix X (N, P) and
 return the post-gossip X' with the bytes each node sent this round.
 
-Ported: full sharing (D-PSGD), and the sparsified strategies that select
-coordinates by magnitude, :class:`TopKSharing` and :class:`ChocoSGD` with
-its top-k compressor, optionally with the int8 wire codec.  They emit
-per-node payloads, ``idx`` (N, k) int32 and ``val`` (N, k), aggregated by
-:func:`repro_torch.core.mixing.mix_payload` (one payload-merge kernel
-launch; ``payload=False`` takes the dense-mask oracle).  Random-k,
-quantized full sharing and CHOCO's random-k compressor draw
-``jax.random`` bits in a layout ``repro_torch.prng`` does not have yet,
-and raise ``NotImplementedError``.  The churn reweights live here too.
+Ported: full sharing (D-PSGD); quantized full sharing (int8 codes and a
+per-node scale, stochastic rounding or not); and the sparsified
+strategies, :class:`RandomKSharing` (uniform or strided sampler),
+:class:`TopKSharing` and :class:`ChocoSGD` (top-k or random-k
+compressor), optionally with the int8 wire codec.  The sparsified ones
+emit per-node payloads, ``idx`` (N, k) int32 and ``val`` (N, k),
+aggregated by :func:`repro_torch.core.mixing.mix_payload` (one
+payload-merge kernel launch; ``payload=False`` takes the dense-mask
+oracle).  Random draws are ``jax.random``'s, bitwise, through
+``repro_torch.prng`` with per-node keys.  The churn reweights live here
+too.
 
 Unlike the JAX package's pure functions, ``round`` updates the strategy
 state (``last_shared``, ``xhat``) in place: at N=1024 each is a 2.4 GB
@@ -24,9 +26,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.core.compression import dequantize_int8, quantize_int8
-from repro_torch.core.mixing import apply_W, mix_payload, mix_payload_masked
+from repro_torch.core.mixing import apply_W, mix_payload, mix_payload_masked, mix_payload_strided
 from repro_torch.core.topology import SparseTopology
 from repro_torch.kernels.sparsify import topk_threshold_rows
 
@@ -101,6 +105,44 @@ def _wire(val, quantize: Optional[str], x_dtype):
         codes, scale = quantize_int8(val.to(torch.float32))
         return dequantize_int8(codes, scale), 1, 4
     raise ValueError(f"unknown payload quantization {quantize!r} (int8|none)")
+
+
+def _node_keys(key, n: int, device):
+    """(N, 1)-word batch of per-node keys: ``fold_in(key, i)`` for node i,
+    as the reference's ``_node_keys`` folds each node's global id."""
+    return prng.fold_in(key, torch.arange(n, dtype=torch.int64, device=device)[:, None])
+
+
+def _randk_uniforms(key, shape, device):
+    """(N, P) per-node ``jax.random.uniform`` draws, node i's from its own
+    key (:func:`_node_keys`)."""
+    return prng.uniform(_node_keys(key, shape[0], device), shape[1:])
+
+
+def _randk_select(u, k: int):
+    """(N, k) int32 indices of the k largest uniforms per row, the set
+    ``lax.top_k`` picks: a stable descending sort puts the lower index
+    first among equal values, as ``lax.top_k`` breaks ties (23-bit
+    uniforms tie often at large P, so ``torch.topk``, which promises no
+    order among ties, would pick another set).  Each row's indices are
+    then sorted ascending, as the payload merge takes them
+    (``sorted_idx``); the set is the reference's, only its slot order
+    differs."""
+    order = torch.sort(u, dim=1, descending=True, stable=True).indices[:, :k]
+    return torch.sort(order, dim=1).values.to(torch.int32)
+
+
+def _randk_idx(key, shape, k: int, device):
+    """(N, k) int32 indices of k random coordinates per row without
+    replacement, rows sorted: the top k of per-node iid uniforms."""
+    return _randk_select(_randk_uniforms(key, shape, device), k)
+
+
+def _strided_phase(key, n: int, stride: int, device):
+    """(N,) int32 random phases in [0, stride): node n shares the
+    coordinates {i·stride + phase_n}.  Per-node keyed, one uniform each."""
+    u = prng.uniform(_node_keys(key, n, device), ())
+    return torch.floor(u * stride).to(torch.int32)
 
 
 def sparse_aggregate(X, W, M):
@@ -192,18 +234,79 @@ class _PayloadSharing:
     def wire_dtype(self, x_dtype) -> str:
         return "int8" if self.quantize == "int8" else _dtype_name(x_dtype)
 
-    def _payload_stage_bytes(self, n: int, p: int) -> int:
+    def _static_idx_bytes(self, p: int):
+        return BYTES_IDX
+
+    def _payload_stage_bytes(self, n: int, p: int):
         """Bytes of the (idx, val) payloads of one round, and the scales."""
         k = max(1, int(self.budget * p))
         item = 1 if self.quantize == "int8" else 4
         header = 4 if self.quantize == "int8" else 0
-        return n * (k * (BYTES_IDX + item) + header)
+        return n * (k * (self._static_idx_bytes(p) + item) + header)
 
     def stage_bytes_per_round(self, n: int, p: int) -> int:
         """Bytes of message tensors the sharing stage materializes per
         round: (idx, val) payloads, vs scattered (N, P) fp32 value and
         byte mask matrices on the dense-mask oracle path."""
         return self._payload_stage_bytes(n, p) if self.payload else n * p * (4 + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomKSharing(_PayloadSharing):
+    """Random sampling sparsification (paper Fig. 4): k random coordinates
+    per node, emitted as an (idx, val) payload (per-node keyed draws).
+
+    sampler: 'uniform' — the k-subset of the top k of (N, P) iid uniforms
+    (:func:`_randk_idx`; int32 coordinates on the wire); 'strided' — the
+    columns split into k cells of width ceil(P/k) and node n shares
+    {i·stride + phase_n}, one narrow offset per message on the wire,
+    merged by :func:`mix_payload_strided`.
+    """
+
+    sampler: str = "uniform"  # uniform | strided
+
+    def init_state(self, X):
+        return ()
+
+    def _static_idx_bytes(self, p: int):
+        if self.sampler != "strided":
+            return BYTES_IDX
+        # one phase offset per message, amortized over the k values
+        k = max(1, int(self.budget * p))
+        stride = -(-p // k)
+        return (1 if stride <= 256 else (2 if stride <= 65536 else 4)) / k
+
+    def round(self, X, W, state, key=None, degree=1.0, rnd=0):
+        k = self._k(X)
+        if self.sampler == "strided":
+            return self._round_strided(X, W, state, key, degree, k)
+        if self.sampler != "uniform":
+            raise ValueError(f"unknown sampler {self.sampler!r} (uniform|strided)")
+        idx = _randk_idx(key, X.shape, k, X.device)
+        val = X.gather(1, idx.long())
+        valf, item, header = _wire(val, self.quantize, X.dtype)
+        X2 = self._aggregate(X, W, idx, valf, sorted_idx=True)
+        return X2, state, self._nbytes(degree, k, item, header)
+
+    def _round_strided(self, X, W, state, key, degree, k: int):
+        """Strided-grid round: P padded with zero columns up to k·stride
+        (every node's pad is zero, so it contributes w·(0 - 0) = 0 and is
+        cut off), one phase per node."""
+        n, p = X.shape
+        stride = -(-p // k)
+        Xp = F.pad(X, (0, k * stride - p))
+        phase = _strided_phase(key, n, stride, X.device)
+        idx = torch.arange(k, dtype=torch.int32, device=X.device)[None, :] * stride + phase[:, None]
+        val = Xp.gather(1, idx.long())
+        valf, item, header = _wire(val, self.quantize, X.dtype)
+        if self.payload:
+            X2p = mix_payload_strided(W, phase, valf, Xp, exact_values=self.quantize is None)
+        else:
+            X2p = mix_payload_masked(W, idx, valf, Xp)
+        phase_bytes = 1 if stride <= 256 else (2 if stride <= 65536 else 4)
+        nbytes = degree * (k * item + phase_bytes + header)
+        # contiguous: the engine's parameter tree is views of the state
+        return X2p[:, :p].to(X.dtype).contiguous(), state, nbytes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,7 +337,7 @@ class ChocoSGD(_PayloadSharing):
     """CHOCO-SGD [Koloskova et al. '19]: gossip on compressed differences
     to a public copy x̂, with consensus step size gamma.
 
-        q_i  = C(x_i - x̂_i)           (top-k compressor)
+        q_i  = C(x_i - x̂_i)           (top-k or random-k compressor)
         x̂_i += q_i
         x_i += gamma * sum_j W_ij (x̂_j - x̂_i)
 
@@ -243,13 +346,7 @@ class ChocoSGD(_PayloadSharing):
     """
 
     gamma: float = 0.3
-    compressor: str = "topk"  # 'topk' | 'randk'
-
-    def __post_init__(self):
-        if self.compressor != "topk":  # the reference takes any other as randk
-            raise NotImplementedError(
-                f"ChocoSGD(compressor={self.compressor!r}) is not ported yet"
-            )
+    compressor: str = "topk"  # 'topk' | 'randk' (the reference takes any other as randk)
 
     def init_state(self, X):
         return {"xhat": torch.zeros(X.shape, dtype=torch.float32, device=X.device)}
@@ -263,12 +360,42 @@ class ChocoSGD(_PayloadSharing):
         xhat = state["xhat"]
         Xf = X.to(torch.float32)
         diff = Xf - xhat
-        idx = _topk_idx(diff.abs(), k, self.selector).long()
+        if self.compressor == "topk":
+            idx = _topk_idx(diff.abs(), k, self.selector).long()
+        else:
+            idx = _randk_idx(key, X.shape, k, X.device).long()
         valf, item, header = _wire(diff.gather(1, idx), self.quantize, torch.float32)
         del diff
         xhat.scatter_add_(1, idx, valf)
         X2 = Xf + self.gamma * (apply_W(W, xhat) - xhat)
         return X2.to(X.dtype), state, self._nbytes(degree, k, item, header)
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizedSharing:
+    """Full sharing through the int8 codec: codes and a per-node fp32
+    scale on the wire (4x fewer bytes than fp32), dequantized before the
+    Metropolis-Hastings merge.  ``stochastic`` rounds floor(x/scale + u)
+    with u a per-node ``jax.random.uniform`` draw (the quantize kernel's
+    noise form), else to nearest."""
+
+    stochastic: bool = True
+
+    def init_state(self, X):
+        return ()
+
+    def round(self, X, W, state, key=None, degree=1.0, rnd=0):
+        keys = _node_keys(key, X.shape[0], X.device) if self.stochastic else None
+        codes, scale = quantize_int8(X, keys)
+        Xq = dequantize_int8(codes, scale)  # what the receivers reconstruct
+        X2 = apply_W(W, Xq).to(X.dtype)
+        return X2, state, degree * (X.shape[1] * 1 + 4)
+
+    def wire_dtype(self, x_dtype) -> str:
+        return "int8"
+
+    def stage_bytes_per_round(self, n: int, p: int) -> int:
+        return n * (p * 1 + 4)
 
 
 def strategy_takes_budget(name: str) -> bool:
@@ -299,12 +426,10 @@ def make_sharing(name: str, budget: Optional[float] = None, **kw):
             raise ValueError(
                 f"sharing strategy {name!r} shares every coordinate; 'budget' does not apply"
             )
-        if name_l in _QUANT_NAMES:
-            raise NotImplementedError(f"sharing strategy {name!r} is not ported yet")
-        return build(FullSharing, **kw)
+        return build(FullSharing if name_l in _FULL_NAMES else QuantizedSharing, **kw)
     b = 0.1 if budget is None else budget
     if name_l in _RANDK_NAMES:
-        raise NotImplementedError(f"sharing strategy {name!r} is not ported yet")
+        return build(RandomKSharing, budget=b, **kw)
     if name_l == "topk":
         return build(TopKSharing, budget=b, **kw)
     if name_l in _CHOCO_NAMES:

@@ -55,7 +55,9 @@ class RoundSteps:
     lat/goodput: (N, N) fp32 link matrices of the simulated network, or None.
     base_key: the ``prng`` key each round's sharing key is folded from.
     live_edges: ``(nbr, live)`` host arrays of the static mixing operand's
-    edges (see ``sharing.participation_deg_eff``), for churn rounds.
+    edges (see ``sharing.participation_deg_eff``), for churn rounds; a
+    dynamic overlay passes each round's own to :meth:`train_and_mix`.
+    lr_scales: (N,) per-node learning-rate multipliers, or None.
     """
 
     loss_fn: Callable
@@ -69,6 +71,7 @@ class RoundSteps:
     goodput: Optional[torch.Tensor] = None
     base_key: prng.Key = prng.key(17)
     live_edges: Optional[Tuple[Optional[np.ndarray], np.ndarray]] = None
+    lr_scales: Optional[torch.Tensor] = None
 
     def local_train(self, params, opt_state, bx, by, active=None):
         """``bx.shape[0]`` SGD steps on every node at once: per-node
@@ -79,6 +82,8 @@ class RoundSteps:
         for s in range(bx.shape[0]):
             grads = node_grad(params, bx[s], by[s])
             updates, new_opt = self.opt.update(grads, opt_state, params)
+            if self.lr_scales is not None:
+                updates = node_scale(updates, self.lr_scales)
             if active is not None:
                 updates = node_scale(updates, active)
                 new_opt = node_where(active, new_opt, opt_state)
@@ -123,12 +128,13 @@ class RoundSteps:
         pairs = np.float32(np.sum(a * live.sum(1) * dead.sum(1), dtype=np.float32))
         return pairs * np.float32(SEED_SHARE_BYTES)
 
-    def share_operands(self, W, rnd: int, act=None):
+    def share_operands(self, W, rnd: int, act=None, live_edges=None):
         """The share step's operands for round ``rnd``: ``(Wm, degree, key,
         kwargs)``.  Under churn (``act`` as in :meth:`train_and_mix`) the
         mixing operand is reweighted on the device, the degree is computed
-        on the host, and a strategy that ``needs_act`` gets the mask as
-        ``act=``."""
+        on the host from ``live_edges`` (this round's edges; the static
+        operand's by default), and a strategy that ``needs_act`` gets the
+        mask as ``act=``."""
         key = prng.fold_in(self.base_key, rnd)
         if act is None:
             return W, self.mean_degree, key, {}
@@ -136,17 +142,19 @@ class RoundSteps:
             Wm = participation_reweight_sparse(W, act[0])
         else:
             Wm = participation_reweight(W, act[0])
-        deg = participation_deg_eff(*self.live_edges, act[1])
+        deg = participation_deg_eff(*(live_edges or self.live_edges), act[1])
         share_kw = {"act": act[0]} if getattr(self.sharing, "needs_act", False) else {}
         return Wm, deg, key, share_kw
 
-    def train_and_mix(self, X, opt_state, share_state, bx, by, W, rnd: int = 0, act=None):
+    def train_and_mix(self, X, opt_state, share_state, bx, by, W, rnd: int = 0, act=None,
+                      live_edges=None):
         """One round: local steps (in place on X), then the share/mix step.
 
         ``act`` is None for full participation, else the round's mask as
         ``(device (N,) fp32 tensor, host (N,) numpy array)``: the mixing
         operand is churn-reweighted on the device, the degree and bytes
-        are computed on the host, and down nodes keep their parameters.
+        are computed on the host (from ``live_edges``, the round's edges of
+        a dynamic overlay), and down nodes keep their parameters.
         Returns ``(X', opt_state, share_state, nbytes, sim_t,
         recovery_bytes)``: the bytes each node sent and the seed-recovery
         bytes as fp32-rounded floats, and the simulated round time as a
@@ -154,7 +162,7 @@ class RoundSteps:
         active = None if act is None else act[0]
         params = tree_unvector(X, self.template)
         _, opt_state = self.local_train(params, opt_state, bx, by, active)
-        Wm, deg, key, share_kw = self.share_operands(W, rnd, act)
+        Wm, deg, key, share_kw = self.share_operands(W, rnd, act, live_edges)
         X2, share_state, nbytes = self.sharing.round(
             X, Wm, share_state, key=key, degree=deg, rnd=rnd, **share_kw
         )

@@ -6,6 +6,8 @@ JAX package's ``core/topology.py``).
 * :class:`SparseTopology` — padded (N, D) neighbor and Metropolis-Hastings
   weight tables, the form sparse overlays are executed in.  Built in numpy;
   the engine moves it to the device once with :meth:`SparseTopology.to`.
+* :class:`PeerSampler` — the dynamic overlay: a new random d-regular
+  graph every round, as per-round tables or stacks of them.
 """
 from __future__ import annotations
 
@@ -292,3 +294,77 @@ class SparseTopology:
         )
         W[np.arange(n), np.arange(n)] += np.asarray(self.w_self)
         return W
+
+
+def stage_rounds(stack: "SparseTopology", device) -> List["SparseTopology"]:
+    """The rounds of an (R, N, D) table stack on ``device``, one
+    :class:`SparseTopology` per round, each with its merge tables (both
+    forms of :meth:`SparseTopology.merge_tables`) built on the host and
+    sent with the tables in one copy each, so that no round reads the
+    device to check its neighbour ids.  Every round is a fresh object: no
+    round sees another's cached tables."""
+    nbr = np.asarray(stack.nbr, np.int32)
+    r, n, d = nbr.shape
+    if nbr.size and (nbr.min() < 0 or nbr.max() >= n):
+        raise ValueError("neighbor ids out of range [0, N)")
+    rows = np.concatenate([np.broadcast_to(np.arange(n, dtype=np.int32)[None, :, None],
+                                           (r, n, 1)), nbr], 2)
+    w = np.asarray(stack.w, np.float32)
+    w_self = np.asarray(stack.w_self, np.float32)
+    ws = np.concatenate([w_self[:, :, None], w], 2)
+    rows_d, ws_d, w_d, w_self_d = (torch.as_tensor(a, device=device)
+                                   for a in (rows, ws, w, w_self))
+    views = []
+    for i in range(r):
+        nbr_i = rows_d[i, :, 1:].contiguous()
+        t = SparseTopology(nbr_i, w_d[i], w_self_d[i])
+        t._merge[True] = (rows_d[i], ws_d[i])
+        t._merge[False] = (nbr_i, w_d[i])
+        views.append(t)
+    return views
+
+
+@dataclasses.dataclass
+class PeerSampler:
+    """Centralized peer sampler (paper §3.2): a new random d-regular
+    topology every round, from the seed chain ``seed * 100003 + round``
+    (numpy-seeded, so bitwise the JAX package's tables)."""
+
+    n: int
+    degree: int
+    seed: int = 0
+
+    def _round_seed(self, round_idx: int) -> int:
+        return self.seed * 100003 + round_idx
+
+    def round_graph(self, round_idx: int) -> Graph:
+        return Graph.random_regular(self.n, self.degree, self._round_seed(round_idx))
+
+    def round_weights(self, round_idx: int) -> np.ndarray:
+        return self.round_graph(round_idx).metropolis_hastings()
+
+    def weights_stack(self, start: int, n_rounds: int) -> np.ndarray:
+        """(R, N, N) float32 stack of the mixing matrices of rounds
+        [start, start + n_rounds): the ``mixing="dense"`` form, O(R·N²)."""
+        return np.stack(
+            [self.round_weights(start + r) for r in range(n_rounds)]
+        ).astype(np.float32)
+
+    def round_table(self, round_idx: int) -> SparseTopology:
+        """One round's (N, D) tables, the graph of :meth:`round_graph`
+        built without the (N, N) adjacency.  On a d-regular graph every
+        Metropolis-Hastings weight is 1/(d+1)."""
+        nbr = random_regular_neighbors(self.n, self.degree, self._round_seed(round_idx))
+        w = np.full(nbr.shape, 1.0 / (self.degree + 1.0), np.float32)
+        w_self = np.full((self.n,), 1.0 / (self.degree + 1.0), np.float32)
+        return SparseTopology(nbr, w, w_self)
+
+    def sparse_stack(self, start: int, n_rounds: int) -> SparseTopology:
+        """(R, N, D) stack of the tables of rounds [start, start + n_rounds):
+        O(R·N·d) to stage."""
+        ts = [self.round_table(start + r) for r in range(n_rounds)]
+        return SparseTopology(
+            np.stack([t.nbr for t in ts]),
+            np.stack([t.w for t in ts]),
+            np.stack([t.w_self for t in ts]),
+        )

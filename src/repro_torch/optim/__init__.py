@@ -1,1 +1,10 @@
-from repro_torch.optim.optimizers import Optimizer, apply_updates, make_optimizer, sgd
+from repro_torch.optim.optimizers import (
+    Optimizer,
+    adamw,
+    apply_updates,
+    clip_by_global_norm,
+    global_norm,
+    make_optimizer,
+    momentum,
+    sgd,
+)

@@ -16,7 +16,13 @@ words without JAX:
   ``(q, q + h)``, its two outputs landing at positions q and q + h
   (h = ceil(total / 2)).  ``jax.random.bits`` no longer uses this layout
   under jax 0.9's partitionable Threefry; the reference's secure
-  aggregation does.
+  aggregation does;
+* :func:`bits` and :func:`uniform` — ``jax.random.bits(k, shape)`` and
+  ``jax.random.uniform(k, shape)`` (float32 in [0, 1)) in jax 0.9's
+  default partitionable layout: element i of the flattened shape ciphers
+  the counter words ``(i >> 32, i & 0xFFFFFFFF)`` and its 32 bits are the
+  xor of the two outputs; a uniform keeps the top 23 of them as the
+  mantissa of a float in [1, 2) and subtracts 1.
 
 A key is a pair of words ``(k1, k2)``, each a Python int or an int64
 tensor of values in [0, 2^32): every word is kept in a wider integer and
@@ -92,19 +98,61 @@ def key_data(k: Key):
     return np.array(k, dtype=np.uint32)
 
 
+def _lead_and_step(k1, k2, device, elems: int):
+    """The batch shape of a key's words (their shape without the last
+    axis of 1), their device, and how many elements of each key one step
+    of the lane loop covers."""
+    dev = k1.device if isinstance(k1, torch.Tensor) else (
+        k2.device if isinstance(k2, torch.Tensor) else device)
+    lead = torch.broadcast_shapes(torch.as_tensor(k1).shape, torch.as_tensor(k2).shape, (1,))[:-1]
+    # lanes in groups: cache-sized operands on the CPU; on the card, groups
+    # large enough that the launches of the ~170 integer ops do not dominate
+    group = _CPU_LANES if torch.device(dev or "cpu").type == "cpu" else _CUDA_LANES
+    return lead, dev, max(1, min(elems, group // max(1, math.prod(lead))))
+
+
+def _partitionable_words(k, shape, device, out_dtype, finish) -> torch.Tensor:
+    """(lead..., *shape) draw of the partitionable layout: element i of
+    the flattened shape ciphers ``(i >> 32, i & 0xFFFFFFFF)``, and
+    ``finish`` maps the xor of the two outputs to the stored values."""
+    k1, k2 = k
+    shape = tuple(int(s) for s in shape)
+    total = math.prod(shape)
+    lead, dev, step = _lead_and_step(k1, k2, device, total)
+    out = torch.empty(lead + (total,), dtype=out_dtype, device=dev)
+    for c in range(0, total, step):
+        i = torch.arange(c, min(c + step, total), dtype=torch.int64, device=dev)
+        y0, y1 = threefry2x32(k1, k2, (i >> 32).expand(lead + i.shape),
+                              (i & MASK32).expand(lead + i.shape))
+        out[..., c:c + i.numel()] = finish(y0.bitwise_xor_(y1))
+    return out.reshape(lead + shape)
+
+
+def bits(k: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(k, shape)`` (uint32 values in an int64 tensor).
+    The key's words may be ints or int64 tensors of shape (..., 1): a batch
+    of keys draws a (..., *shape) table, each key's draw its own."""
+    return _partitionable_words(k, shape, device, torch.int64, lambda b: b)
+
+
+def uniform(k: Key, shape, device=None) -> torch.Tensor:
+    """``jax.random.uniform(k, shape)``: float32 in [0, 1) from the top 23
+    of :func:`bits`'s 32 bits (batched keys as there)."""
+    def to_float(b):
+        words = b.bitwise_right_shift_(9).bitwise_or_(0x3F800000).to(torch.int32)
+        return words.view(torch.float32) - 1.0
+
+    return _partitionable_words(k, shape, device, torch.float32, to_float)
+
+
 def counter_bits(k1, k2, total: int, device=None) -> torch.Tensor:
     """(..., total) int64 tensor of the key's uint32 bits in the counter
     layout (module docstring): one cipher call per lane, both outputs used.
     ``k1``/``k2`` are ints or int64 tensors of shape (..., 1)."""
     total = int(total)
     h = (total + 1) // 2
-    dev = k1.device if isinstance(k1, torch.Tensor) else device
-    lead = torch.broadcast_shapes(torch.as_tensor(k1).shape, torch.as_tensor(k2).shape, (1,))[:-1]
+    lead, dev, step = _lead_and_step(k1, k2, device, max(h, 1))
     out = torch.empty(lead + (total,), dtype=torch.int64, device=dev)
-    # lanes in groups: cache-sized operands on the CPU; on the card, groups
-    # large enough that the launches of the ~170 integer ops do not dominate
-    group = _CPU_LANES if torch.device(dev or "cpu").type == "cpu" else _CUDA_LANES
-    step = max(1, group // max(1, math.prod(lead)))
     for c in range(0, h, step):
         lane = torch.arange(c, min(c + step, h), dtype=torch.int64, device=dev)
         hi = lane + h

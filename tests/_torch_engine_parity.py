@@ -1,7 +1,10 @@
-"""Shared helpers of the engine parity tests for secure aggregation and
-churn (``test_torch_secure.py``, ``test_torch_churn.py``): one run of the
-JAX package's RoundEngine, recording each round's share step, and one run
-of the port's RoundEngine from the same initial parameters.
+"""Shared helpers of the engine parity tests (secure aggregation, churn,
+the dynamic overlay, random-k and quantized sharing, optimizers and
+per-node learning rates: ``test_torch_{secure,churn,dynamic,randomk,
+optim}.py``): one run of the JAX package's RoundEngine, recording each
+round's share step, and one run of the port's RoundEngine from the same
+initial parameters, with the same optimizer and per-node learning-rate
+multipliers.
 
 Two sizes.  ``WHOLE`` is the engine parity size of ``test_torch_engine.py``
 (8 nodes, degree 5), where the two packages' trajectories are compared
@@ -73,10 +76,12 @@ class _Recording:
         return out
 
 
-def jax_run(cfg):
+def jax_run(cfg, optimizer=("sgd", 0.05, {}), heterogeneous_lrs=None):
     """One JAX engine run: initial params, flat params at each eval,
-    history, totals, and each round's recorded share step."""
+    history, totals, and each round's recorded share step.  ``optimizer``
+    is ``make_optimizer``'s (name, lr, kwargs)."""
     ds, parts = _data(cfg["n_nodes"])
+    name, lr, okw = optimizer
     steps = []
     make, secure = jsharing.make_sharing, jengine.SecureAggregation
     with pytest.MonkeyPatch.context() as mp:
@@ -86,7 +91,9 @@ def jax_run(cfg):
             JDLConfig(**cfg), lambda k: jcnn_init(k, width=WIDTH),
             lambda p, x, y: jce(jcnn_apply(p, x), y),
             lambda p, x, y: (jcnn_apply(p, x).argmax(-1) == y).mean(),
-            jmake_optimizer("sgd", 0.05), JNodeBatcher(ds.train_x, ds.train_y, parts, BATCH, seed=0),
+            jmake_optimizer(name, lr, **okw),
+            JNodeBatcher(ds.train_x, ds.train_y, parts, BATCH, seed=0),
+            heterogeneous_lrs=heterogeneous_lrs,
         )
     init = jax.tree_util.tree_map(np.asarray, eng.params)
     snaps, record = [], eng._record
@@ -101,18 +108,27 @@ def jax_run(cfg):
     return {"init": init, "snaps": snaps, "history": eng.history, "steps": steps,
             "bytes_sent": eng.bytes_sent, "sim_time_s": eng.sim_time_s,
             "share_stage_bytes": eng.share_stage_bytes, "wire_dtype": eng.wire_dtype,
-            "mix_mode": eng.mix_mode}
+            "mix_mode": eng.mix_mode, "topo_stage_bytes_peak": eng.topo_stage_bytes_peak,
+            "opt_state": jax.tree_util.tree_map(np.asarray, eng.opt_state)}
 
 
-def torch_run(cfg, init):
-    """The port's engine on the CPU from the JAX run's initial params:
-    (engine, flat params at each eval)."""
+def torch_engine(cfg, init, optimizer=("sgd", 0.05, {}), heterogeneous_lrs=None):
+    """The port's engine on the CPU from the JAX run's initial params (or
+    its own draws where ``init`` is None), not yet run."""
     ds, parts = _data(cfg["n_nodes"])
-    eng = RoundEngine(
+    name, lr, okw = optimizer
+    return RoundEngine(
         DLConfig(**cfg), lambda g: cnn_init(g, width=WIDTH), loss_fn, acc_fn,
-        make_optimizer("sgd", 0.05), NodeBatcher(ds.train_x, ds.train_y, parts, BATCH, seed=0),
-        init_params=params_from_jax(init), device="cpu",
+        make_optimizer(name, lr, **okw), NodeBatcher(ds.train_x, ds.train_y, parts, BATCH, seed=0),
+        heterogeneous_lrs, init_params=None if init is None else params_from_jax(init),
+        device="cpu",
     )
+
+
+def torch_run(cfg, init, **kw):
+    """:func:`torch_engine` run to its end: (engine, flat params at each
+    eval)."""
+    eng = torch_engine(cfg, init, **kw)
     snaps, record = [], eng._record
 
     def snap_record(rnd, *a, **kw):
@@ -129,7 +145,7 @@ def assert_run_metrics_match(eng, want):
     counters included."""
     assert eng.bytes_sent == want["bytes_sent"] > 0
     assert eng.sim_time_s == pytest.approx(want["sim_time_s"], rel=1e-6)
-    for k in ("share_stage_bytes", "wire_dtype", "mix_mode"):
+    for k in ("share_stage_bytes", "wire_dtype", "mix_mode", "topo_stage_bytes_peak"):
         assert getattr(eng, k) == want[k], k
     assert len(eng.history) == len(want["history"])
     for h, jh in zip(eng.history, want["history"]):

@@ -248,12 +248,14 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(semantics="local"), dict(semantics="async"), dict(sharing="randomk"),
-    dict(sharing="randomk", randk_sampler="strided"), dict(sharing="int8"), dict(sharing="quant"),
+    dict(semantics="local"), dict(semantics="async"), dict(sharing="randomk", semantics="async"),
+    dict(sharing="randomk", randk_sampler="strided", shard_devices=2),
+    dict(sharing="int8", faults=object()), dict(sharing="quant", cohort_capacity=4),
     dict(secure=True, faults=object()), dict(sharing="topk", participation=0.5),
     dict(sharing="choco", participation=0.5),
     dict(faults=object()), dict(shard_devices=2), dict(cohort_capacity=4),
-    dict(backend="processes"), dict(topology="dynamic"), dict(batch_keying="node"),
+    dict(backend="processes"), dict(topology="dynamic", batch_keying="node"),
+    dict(batch_keying="node"),
 ])
 def test_validate_raises_not_implemented(knob):
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -290,14 +292,27 @@ def test_validate_accepts_the_ported_secure_and_churn_knobs(knob):
     assert DLConfig(**knob).validate() is not None
 
 
+@pytest.mark.parametrize("knob", [
+    dict(sharing="randomk"), dict(sharing="randomk", randk_sampler="strided"),
+    dict(sharing="int8"), dict(sharing="quant"), dict(topology="dynamic"),
+    dict(topology="dynamic", mixing="dense", participation=0.5),
+    dict(sharing="quant", churn_machines=2), dict(sharing="choco", budget=0.2),
+])
+def test_validate_accepts_the_sampled_and_dynamic_knobs(knob):
+    assert JDLConfig(**knob).validate() is not None
+    assert DLConfig(**knob).validate() is not None
+
+
 def test_unknown_sharing_is_a_value_error():
     with pytest.raises(ValueError, match="unknown sharing"):
         DLConfig(sharing="nope").validate()
 
 
 def test_heterogeneous_lrs_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        RoundEngine(DLConfig(), None, None, None, None, None, np.ones(16), device="cpu")
+    """Per-node learning rates are ported (``test_torch_optim.py`` holds
+    them against the JAX engine); one of the wrong length still raises."""
+    with pytest.raises(ValueError, match="heterogeneous_lrs"):
+        RoundEngine(DLConfig(), None, None, None, None, None, np.ones(15), device="cpu")
 
 
 def test_config_fields_and_defaults_carry_over():

@@ -44,7 +44,12 @@ SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.ker
                  "repro_torch.models.hybrid", "repro_torch.models.api", "repro_torch.convert",
                  "repro_torch.serving.engine", "repro_torch.configs.smollm_135m",
                  "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_1_2b",
-                 "repro_torch.serve")
+                 "repro_torch.serve", "repro_torch.core.topology", "repro_torch.core.sharing",
+                 "repro_torch.core.mixing", "repro_torch.core.compression",
+                 "repro_torch.core.engine", "repro_torch.core.node", "repro_torch.models.mlp",
+                 "repro_torch.optim.optimizers", "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.utils.io", "repro_torch.topologies_dynamic",
+                 "repro_torch.sparsification")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -662,3 +662,70 @@ def test_model_routes_launch_the_kernels_on_gpu():
     assert tssd.ssd_chunk.launches == before + 1
     torch.testing.assert_close(got, tssm.ssm_apply(sp, scfg.replace(ssm_impl="jnp"), x),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p", [(4, (1 << 24) + 3), (1024, 70_001), (3, 1)])
+def test_uniform_draw_on_gpu_equals_the_cpu_draw(n, p):
+    """``prng.uniform`` of an (N, 1) key table on the card, bitwise its CPU
+    draw: (4, 2^24 + 3) crosses the card's lane group of 2^26 lanes within
+    a row (the CPU's groups fall elsewhere), (1024, 70,001) splits the
+    groups by rows."""
+    dev = _card()
+    k = prng.fold_in(prng.key(17), 5)
+    ids = torch.arange(n)[:, None]
+    got = prng.uniform(prng.fold_in(k, ids.to(dev)), (p,))
+    want = prng.uniform(prng.fold_in(k, ids), (p,))
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(prng.bits(prng.fold_in(k, ids.to(dev)), (p,)).cpu(),
+                       prng.bits(prng.fold_in(k, ids), (p,)))
+
+
+@pytest.mark.gpu
+def test_quantize_noise_from_the_prng_on_gpu():
+    """Stochastic rounding with per-node keys (``QuantizedSharing``'s draw)
+    on the card: codes and scales bitwise the twin fed the same uniforms,
+    and bitwise the whole CPU path."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((64, 20_011), generator=g, device=dev)
+    keys = tshare._node_keys(prng.fold_in(prng.key(17), 2), 64, dev)
+    noise = prng.uniform(keys, (20_011,))
+    before = tq.quantize.launches
+    codes, scale = tshare.quantize_int8(x, keys)
+    assert tq.quantize.launches == before + 1
+    wc, ws = tq.quantize_ref(x, noise)
+    assert torch.equal(codes, wc) and torch.equal(scale, ws)
+    cc, cs = tshare.quantize_int8(x.cpu(), tshare._node_keys(prng.fold_in(prng.key(17), 2), 64,
+                                                            "cpu"))
+    assert torch.equal(codes.cpu(), cc) and torch.equal(scale.cpu(), cs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sampler", ["uniform", "strided"])
+def test_payload_merge_on_random_k_rows_on_gpu(sampler):
+    """The random-k payloads as ``RandomKSharing`` builds them (uniform: the
+    rows sorted after the stable top-k of the uniforms; strided: rebuilt
+    i·stride + phase rows), merged with ``sorted_idx=True``: bitwise the
+    twin, and the uniform indices bitwise the CPU's."""
+    dev = _card()
+    n, p, k = 64, 20_011, 2001
+    g = torch.Generator(device=dev).manual_seed(9)
+    X = torch.randn((n, p), generator=g, device=dev)
+    key = prng.fold_in(prng.key(17), 3)
+    if sampler == "uniform":
+        idx = tshare._randk_idx(key, (n, p), k, dev)
+        assert torch.equal(idx.cpu(), tshare._randk_idx(key, (n, p), k, "cpu"))
+    else:
+        stride = -(-p // k)
+        X = torch.nn.functional.pad(X, (0, k * stride - p))
+        phase = tshare._strided_phase(key, n, stride, dev)
+        idx = (torch.arange(k, dtype=torch.int32, device=dev)[None] * stride + phase[:, None])
+    assert bool((idx[:, 1:] > idx[:, :-1]).all())
+    val = X.gather(1, idx.long())
+    rows, w = ttop.SparseTopology.regular_circulant(n, 5).to(dev).merge_tables(include_self=False)
+    before = sg.payload_mix_rows.launches
+    got = sg.payload_mix_rows(X, idx, val, rows, w, sorted_idx=True)
+    assert sg.payload_mix_rows.launches == before + 1
+    assert torch.equal(got, sg.payload_mix_rows_ref(X, idx, val, rows, w))

@@ -190,6 +190,8 @@ def test_sgd_matches_jax_exactly():
     topt.apply_updates_(tp, tu)
     for k, v in _flat(tp).items():
         np.testing.assert_array_equal(v.numpy(), want[k])
+    # momentum and AdamW are ported (tests/test_torch_optim.py holds them)
     for name in ("momentum", "adamw"):
-        with pytest.raises(NotImplementedError):
-            topt.make_optimizer(name, 0.1)
+        assert topt.make_optimizer(name, 0.1).init(params_from_jax(p)) is not None
+    with pytest.raises(ValueError):
+        topt.make_optimizer("lion", 0.1)

@@ -92,3 +92,54 @@ def test_threefry_cipher_bitwise():
         np.testing.assert_array_equal(g.numpy(), np.asarray(j).astype(np.int64))
     ints = prng.threefry2x32(*(int(a[0]) for a in w))
     assert ints == (int(got[0][0]), int(got[1][0]))
+
+
+KEYS = [(5, 3), (0, 0), (17, (1 << 32) - 1)]
+
+
+@pytest.mark.parametrize("shape,kd", [
+    *((shape, kd) for shape in [(), (1,), (9,), (4, 7), (2, 3, 5)] for kd in KEYS),
+    ((1 << 16, 3), KEYS[0]), ((70_001,), KEYS[2]),
+], ids=str)
+def test_bits_and_uniform_bitwise(shape, kd):
+    """``bits``/``uniform`` in the partitionable layout of jax 0.9's
+    default: shapes over 2^16 elements, odd lengths, several axes."""
+    jk = jax.random.fold_in(jax.random.key(kd[0]), kd[1])
+    tk = prng.fold_in(prng.key(kd[0]), kd[1])
+    jb = np.asarray(jax.random.bits(jk, shape)).astype(np.int64)
+    tb = prng.bits(tk, shape)
+    assert tb.dtype == torch.int64 and tuple(tb.shape) == shape
+    np.testing.assert_array_equal(tb.numpy(), jb)
+    ju = np.asarray(jax.random.uniform(jk, shape))
+    tu = prng.uniform(tk, shape)
+    assert tu.dtype == torch.float32 and tuple(tu.shape) == shape
+    np.testing.assert_array_equal(tu.numpy().view(np.int32), ju.view(np.int32))
+
+
+@pytest.mark.parametrize("n,shape", [(6, (1001,)), (3, (70_001,)), (5, ()), (4, (3, 33))])
+def test_uniform_of_a_key_table(n, shape):
+    """(N, 1) key words, as the sharing strategies fold each node's id,
+    draw an (N, *shape) table; row i is the draw of key i alone."""
+    tk = prng.fold_in(prng.key(11), 4)
+    got = prng.uniform(prng.fold_in(tk, torch.arange(n)[:, None]), shape)
+    gotb = prng.bits(prng.fold_in(tk, torch.arange(n)[:, None]), shape)
+    assert tuple(got.shape) == (n,) + shape
+    jk = jax.random.fold_in(jax.random.key(11), 4)
+    for i in range(n):
+        ki = jax.random.fold_in(jk, i)
+        np.testing.assert_array_equal(got[i].numpy(), np.asarray(jax.random.uniform(ki, shape)))
+        np.testing.assert_array_equal(gotb[i].numpy(),
+                                      np.asarray(jax.random.bits(ki, shape)).astype(np.int64))
+
+
+def test_uniform_lane_groups_do_not_change_the_draw(monkeypatch):
+    """The lane loop's group size moves no bit (the card's groups are
+    larger than the CPU's)."""
+    tk = prng.fold_in(prng.key(2), 1)
+    keys = prng.fold_in(tk, torch.arange(3)[:, None])
+    want = prng.uniform(keys, (5003,))
+    monkeypatch.setattr(prng, "_CPU_LANES", 1000)
+    np.testing.assert_array_equal(prng.uniform(keys, (5003,)).numpy(), want.numpy())
+    np.testing.assert_array_equal(prng.uniform(tk, (5003,)).numpy(),
+                                  np.asarray(jax.random.uniform(
+                                      jax.random.fold_in(jax.random.key(2), 1), (5003,))))

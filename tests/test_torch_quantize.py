@@ -20,6 +20,7 @@ import torch
 from repro.core import compression as jcomp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch import prng
 from repro_torch.core import compression as tcomp
 from repro_torch.kernels import quantize as tq
 
@@ -107,8 +108,24 @@ def test_nan_row_propagates_like_jax(noisy):
 
 
 def test_stochastic_rounding_needs_the_prng():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcomp.quantize_int8(torch.ones((2, 4)), key=0)
+    """Stochastic rounding draws its noise through ``prng.uniform``: codes
+    and scales bitwise the jitted reference's, for one key over the whole
+    array and for per-row keys (the reference's ``vmap``)."""
+    x = np.random.default_rng(4).normal(size=(3, 1001)).astype(np.float32)
+    jk = jax.random.fold_in(jax.random.key(9), 2)
+    tk = prng.fold_in(prng.key(9), 2)
+    jc, js = jax.jit(jcomp.quantize_int8)(jnp.asarray(x), jk)
+    tc, ts = tcomp.quantize_int8(torch.tensor(x), tk)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    jkeys = jax.vmap(lambda i: jax.random.fold_in(jk, i))(jnp.arange(3))
+    jc, js = jax.jit(jax.vmap(lambda r, kk: jcomp.quantize_int8(r, kk)))(jnp.asarray(x), jkeys)
+    tc, ts = tcomp.quantize_int8(torch.tensor(x), prng.fold_in(tk, torch.arange(3)[:, None]))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (tc.numpy() != tcomp.quantize_int8(torch.tensor(x))[0].numpy()).any()
+    with pytest.raises(ValueError, match="do not lead"):
+        tcomp.quantize_int8(torch.tensor(x), prng.fold_in(tk, torch.arange(4)[:, None]))
 
 
 def test_cpu_tensor_takes_the_twin_and_leaves_the_counters():

@@ -190,8 +190,12 @@ def test_sparse_aggregate_matches_jax():
     ("choco", dict(compressor="randk")),
 ])
 def test_strategies_that_draw_random_numbers_are_not_ported(name, kw):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tshare.make_sharing(name, **kw)
+    """These strategies are ported now (their rounds are held against the
+    JAX package in ``test_torch_randomk.py``): each name builds the JAX
+    package's strategy with the same fields."""
+    t, j = tshare.make_sharing(name, **kw), jshare.make_sharing(name, **kw)
+    assert type(t).__name__ == type(j).__name__
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
 
 
 @pytest.mark.parametrize("name,kw", [

@@ -109,3 +109,42 @@ def test_linkspec_rejects_full_drop():
     with pytest.raises(ValueError):
         tnet.LinkSpec(1e9, 1e-3, drop_rate=1.0)
     assert tnet.LAN.transfer_time(1e6) == jnet.LAN.transfer_time(1e6)
+
+
+@pytest.mark.parametrize("n,d,seed", [(8, 5, 0), (16, 4, 3), (33, 2, 7), (64, 5, 1)])
+def test_peer_sampler_tables_and_stacks_bitwise(n, d, seed):
+    """The dynamic overlay's per-round graphs, weights, tables and stacks
+    are the JAX package's, bit for bit (numpy-seeded)."""
+    a, b = jtop.PeerSampler(n, d, seed), ttop.PeerSampler(n, d, seed)
+    for r in (0, 1, 5):
+        np.testing.assert_array_equal(a.round_graph(r).adj, b.round_graph(r).adj)
+        np.testing.assert_array_equal(a.round_weights(r), b.round_weights(r))
+        ta, tb = a.round_table(r), b.round_table(r)
+        for f in ("nbr", "w", "w_self"):
+            np.testing.assert_array_equal(getattr(ta, f), getattr(tb, f))
+    np.testing.assert_array_equal(a.weights_stack(2, 3), b.weights_stack(2, 3))
+    sa, sb = a.sparse_stack(2, 3), b.sparse_stack(2, 3)
+    for f in ("nbr", "w", "w_self"):
+        np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f))
+    assert sa.stage_bytes() == sb.stage_bytes()
+    assert not np.array_equal(sb.nbr[0], sb.nbr[1])
+
+
+def test_staged_rounds_are_fresh_views_with_the_rounds_merge_tables():
+    """Each staged round is its own object whose merge tables (both forms)
+    are the ones ``merge_tables`` builds from that round's tables: no round
+    reuses another round's cache."""
+    stack = ttop.PeerSampler(12, 3, 5).sparse_stack(0, 4)
+    views = ttop.stage_rounds(stack, "cpu")
+    assert len({id(v) for v in views}) == 4
+    for r, v in enumerate(views):
+        fresh = ttop.SparseTopology(stack.nbr[r], stack.w[r], stack.w_self[r]).to("cpu")
+        for inc in (True, False):
+            for got, want in zip(v.merge_tables(inc), fresh.merge_tables(inc)):
+                assert got.is_contiguous()
+                np.testing.assert_array_equal(got.numpy(), want.numpy())
+        np.testing.assert_array_equal(v.nbr.numpy(), stack.nbr[r])
+    assert not torch.equal(views[0].merge_tables()[0], views[1].merge_tables()[0])
+    bad = ttop.SparseTopology(stack.nbr + 12, stack.w, stack.w_self)
+    with pytest.raises(ValueError, match="out of range"):
+        ttop.stage_rounds(bad, "cpu")
