@@ -43,14 +43,27 @@ Phases (any failure raises and the exit code is non-zero):
    rounding), 8 rounds each, launch counts and bytes asserted, then one
    profiled round and the share step alone, with its random draw and (for
    random-k) its selection sort timed apart and the strided sampler's step;
-9. reference: the full-sharing, secure, dynamic, random-k, Nesterov
-   momentum and AdamW engines on a small input, on the card and on the CPU
-   from the same parameters, must agree; for TopK (int8) and CHOCO-SGD with
-   the histogram selector and for stochastic quantized sharing, every share
-   step of the card's run, replayed on the CPU from the same inputs and
-   key, must agree;
-9b. examples: ``repro_torch.topologies_dynamic`` and
-   ``repro_torch.sparsification`` on the card at ``--rounds 4``;
+8d. faults path: full sharing under a FaultPlan (message loss 0.1, latency
+   spikes 0.05 x10, NaN corruption 0.05, two crash windows) at
+   participation 0.9, 8 rounds: one gather merge per round on the
+   loss-reweighted table, the counters conserved and equal to the same
+   draws recomputed on the CPU, bytes from the host formula; a profiled
+   round with every kernel listed, and the guard's three passes timed;
+8e. churn-topk path: the topk path at participation 0.9, with its launch
+   counts, host-formula bytes, a profiled round that leaves the down
+   nodes' last_shared rows bitwise unchanged, and the share step alone;
+9. reference: the full-sharing, fault-injected (sparse and dense W),
+   secure (plain, and with spikes, corruption and a crash window), dynamic,
+   random-k (alone and under churn), Nesterov momentum and AdamW engines on
+   a small input, on the card and on the CPU from the same parameters, must
+   agree, fault counters included; for TopK (int8) and CHOCO-SGD with the
+   histogram selector and for stochastic quantized sharing, alone and under
+   churn, every share step of the card's run, replayed on the CPU from the
+   same inputs and key, must agree;
+9b. examples: ``repro_torch.topologies_dynamic``,
+   ``repro_torch.sparsification``, ``repro_torch.faults``,
+   ``repro_torch.churn`` and ``repro_torch.fl_vs_dl`` on the card at
+   ``--rounds 4``;
 10. lm-kernels: the sliding-window attention and SSD chunk kernels against
    their twins at the two language-model paths' shapes and a few others,
    with ``scaled_dot_product_attention`` under the same band mask as the
@@ -105,6 +118,10 @@ MAIN_K = int(0.1 * MAIN_P)  # the TopK payload at a 10% budget: 57,959
 LIBS = ("gossip_mix", "scatter_gossip", "sparsify", "quantize", "secure_mask",
         "swa_attention", "ssd_chunk")
 SECURE_CFG = dict(secure=True, participation=0.9, secure_recovery=True)
+# the [faults] path's plan: msg_loss within examples/faults.py's sweep, its
+# --corrupt 0.05, tests/test_faults.py's crash windows
+FAULT_PLAN = dict(msg_loss=0.1, latency_spike_prob=0.05, latency_spike_factor=10.0,
+                  corrupt_prob=0.05, corrupt_mode="nan", crashes=((3, 2, 5), (7, 4, -1)), seed=0)
 CMP_ELEMS = 1 << 28  # elements per step of a kernel-twin comparison
 L2_EVICT_BYTES = 256 << 20  # a write over this many bytes clears the 50 MB L2
 YARDSTICK_KEYS = ("searchsorted_", "code_pass_")  # check()'s further yardsticks
@@ -895,15 +912,20 @@ def phase_secure_path():
 def main_path_engine(n, width, n_train, rounds, chunk, eval_every, device, init_params=None,
                      optimizer=("sgd", 0.05, {}), **sharing):
     """The quickstart configuration (5-regular unless ``topology`` is
-    given, LAN model, 2 local steps of batch 8, GN-LeNet) with the sharing
-    and overlay knobs of ``sharing``; ``optimizer`` is ``make_optimizer``'s
-    (name, lr, kwargs)."""
+    given, LAN model, 2 local steps of batch 8, GN-LeNet) with the sharing,
+    overlay, churn and fault knobs of ``sharing`` (``faults`` a FaultPlan
+    or its keyword dict); ``optimizer`` is ``make_optimizer``'s (name, lr,
+    kwargs)."""
     from repro_torch import DLConfig, RoundEngine
     from repro_torch.data import NodeBatcher, make_dataset, sharding_partition
     from repro_torch.models.cnn import cnn_init
     from repro_torch.optim import make_optimizer
     from repro_torch.quickstart import acc_fn, loss_fn
 
+    from repro_torch.core.faults import FaultPlan
+
+    if isinstance(sharing.get("faults"), dict):
+        sharing = {**sharing, "faults": FaultPlan(**sharing["faults"])}
     ds = make_dataset("cifar10", n_train=n_train, n_test=512)
     parts = sharding_partition(ds.train_y, n, shards_per_node=2, seed=0)
     batcher = NodeBatcher(ds.train_x, ds.train_y, parts, batch_size=8, seed=0)
@@ -1007,6 +1029,133 @@ def phase_topk_path():
     if eng.bytes_sent != want_bytes:
         raise AssertionError(f"bytes_sent {eng.bytes_sent} != {want_bytes}")
     return launches, eng
+
+
+def host_churn_rounds(eng, rounds):
+    """Per round of the run just driven, on the host: the activity mask
+    (churn ANDed with crash windows), the sending edges of the 5-regular
+    overlay (both endpoints up) and the churn-level degree as the engine's
+    fp32 division gives it."""
+    import numpy as np
+    from repro_torch.core.topology import circulant_neighbor_table
+
+    nbr = circulant_neighbor_table(MAIN_N, MAIN_DEG)
+    act, _ = eng.scheduler.stage_activity(0, rounds)
+    out = []
+    for m in act:
+        up = m > 0
+        sent = up[:, None] & up[nbr]
+        deg = np.float32(np.count_nonzero(sent)) / np.float32(max(np.count_nonzero(up), 1))
+        out.append((up, sent, deg))
+    return out
+
+
+def phase_faults_path():
+    """Full sharing under FAULT_PLAN (message loss 0.1, latency spikes
+    0.05 x10, NaN corruption 0.05, crash windows (3, 2, 5) and (7, 4, -1))
+    at participation 0.9: per round one gather-merge launch on that round's
+    loss-reweighted table and no other kernel.  The counters conserve, the
+    guard detects and rolls back every corruption, the crash windows take 7
+    node-rounds, the dropped, spiked and corrupted counts equal those of
+    the same draws recomputed on the CPU (``repro_torch.core.faults``), and
+    the bytes are the churn-level host formula's (lost messages are still
+    charged)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import faults
+    from repro_torch.core.faults import FaultPlan
+
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+                           participation=0.9, faults=FaultPlan(**FAULT_PLAN))
+    print(f"[faults] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
+          f"plan={FAULT_PLAN} participation=0.9", flush=True)
+    rounds = eng.dl.rounds
+    hist, launches = drive_path("faults", eng, {"gossip_mix_rows": rounds})
+    plan, key = eng.dl.faults, faults.fault_key(eng.dl.faults, eng.dl.seed)
+    ids = torch.arange(MAIN_N)
+    lost = corrupted = 0
+    total = 0.0
+    for r, (up, sent, deg) in enumerate(host_churn_rounds(eng, rounds)):
+        live, spike = faults.edge_draws(key, r, ids, MAIN_DEG, plan)
+        lost += np.count_nonzero(sent & (live.numpy() == 0)) + np.count_nonzero(
+            sent & (spike.numpy() > 0))
+        corrupted += np.count_nonzero(up & (faults.corruption_mask(key, r, ids, plan).numpy() > 0))
+        total += float(deg * np.float32(MAIN_P * 4))
+    got = {k: hist[-1][k] for k in faults.STAT_KEYS}
+    want = {"faults_injected": lost + corrupted + 7, "faults_detected": corrupted,
+            "faults_survived": lost + 7, "faults_recovered": corrupted, "retry_total": 0,
+            "recovery_bytes": 0.0}
+    print(f"[faults] counters {got}; recomputed on the CPU {want} (messages lost or spiked "
+          f"{lost}, rows corrupted {corrupted}, crash downtime 7); bytes_sent={eng.bytes_sent} "
+          f"(host formula {total})", flush=True)
+    if got != want or eng.bytes_sent != total or corrupted == 0 or lost == 0:
+        raise AssertionError("faults path: counters or bytes differ from the CPU recomputation")
+    return launches, eng
+
+
+def time_guard(eng):
+    """The guard's three passes over the engine's (N, P) state, CUDA-event
+    timed: the start-of-round snapshot copy, the non-finite row pass and
+    the rollback select."""
+    import torch
+    from repro_torch.core import faults
+
+    X = eng.X
+    snap = X.clone()
+    good = torch.ones(X.shape[0], device=X.device)
+    out = torch.empty_like(X)
+    times = {"snapshot copy": time_ms(lambda: snap.copy_(X)),
+             "non-finite rows": time_ms(lambda: faults.nonfinite_rows(X)),
+             "rollback where": time_ms(lambda: torch.where(good[:, None] > 0, X, snap, out=out))}
+    print(f"[faults] guard passes over ({X.shape[0]}, {X.shape[1]}) fp32 (CUDA events, ms per "
+          f"pass): {times}", flush=True)
+    del snap, out
+    return times
+
+
+def phase_churn_topk_path():
+    """TopK at a 10% budget with the int8 wire under churn (participation
+    0.9): ``[topk]``'s launch counts (two histogram launches, one
+    quantize, one dequantize, one payload merge per round), bytes
+    sum_r deg_eff_r (k·5 + 4) in fp32."""
+    import numpy as np
+
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+                           sharing="topk", budget=0.1, payload_quant=True, participation=0.9)
+    print(f"[churn-topk] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
+          f"k={MAIN_K} wire={eng.wire_dtype} participation=0.9", flush=True)
+    rounds = eng.dl.rounds
+    _, launches = drive_path("churn-topk", eng, {
+        "abs_histogram_rows": 2 * rounds, "quantize": rounds, "dequantize": rounds,
+        "payload_mix_rows": rounds})
+    total = sum(float(deg * np.float32(MAIN_K * 5 + 4))
+                for _, _, deg in host_churn_rounds(eng, rounds))
+    print(f"[churn-topk] bytes_sent={eng.bytes_sent} (host formula {total})", flush=True)
+    if eng.bytes_sent != total:
+        raise AssertionError("churn-topk path bytes differ from the host formula")
+    return launches, eng
+
+
+def profile_churn_topk_round(eng):
+    """One more round under the profiler, holding the down nodes'
+    last_shared rows to be bitwise what they were before it."""
+    import numpy as np
+    import torch
+
+    rnd = eng.dl.rounds
+    act, _ = eng.scheduler.stage_activity(rnd, 1)
+    down = torch.as_tensor(np.nonzero(act[0] == 0)[0], device=eng.device)
+    last = eng.share_state["last_shared"]
+    before, live_before = last[down].clone(), last[:64].clone()
+    phase_profile(eng, "churn-topk")
+    frozen = torch.equal(eng.share_state["last_shared"][down], before)
+    moved = not torch.equal(eng.share_state["last_shared"][:64], live_before)
+    print(f"[churn-topk] round {rnd}: {down.numel()} down nodes' last_shared rows bitwise "
+          f"unchanged: {frozen}; the first 64 rows moved: {moved}", flush=True)
+    if down.numel() == 0 or not frozen or not moved:
+        raise AssertionError("churn-topk: a down node's last_shared changed (or none was down)")
 
 
 def phase_sampled_kernels():
@@ -1193,9 +1342,9 @@ def share_operands(eng, rnd):
     import torch
 
     act = None
-    if eng.dl.participation < 1.0:
-        act_np = eng.scheduler.participation_mask(rnd, 1)[0]
-        act = (torch.as_tensor(act_np, device=eng.device), act_np)
+    act_np, _ = eng.scheduler.stage_activity(rnd, 1)
+    if act_np is not None:
+        act = (torch.as_tensor(act_np[0], device=eng.device), act_np[0])
     W, live = eng.scheduler.stage_topology(rnd, 1)[0]
     return eng.steps.share_operands(W, rnd, act, live)
 
@@ -1233,17 +1382,17 @@ def time_share_step(eng, path, reps=3, strategy=None, label="share step alone"):
     return times
 
 
-def phase_profile(eng, path):
+def phase_profile(eng, path, top=12):
     """One more round of the engine's path (``path`` names it in the log)
     under torch.profiler."""
     profile_call(f"one {path}-path round",
-                 lambda: eng.scheduler.run_span(eng.dl.rounds, 1))
+                 lambda: eng.scheduler.run_span(eng.dl.rounds, 1), top)
 
 
-def profile_call(label, fn):
+def profile_call(label, fn, top=12):
     """``fn()`` under torch.profiler: the device's busy time (union of its
     kernel and copy intervals) against the call's wall time, and the device
-    time by kernel."""
+    time by kernel (the ``top`` largest; every kernel where None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1274,13 +1423,15 @@ def profile_call(label, fn):
           f"device busy (union of intervals) {busy_us / 1e3:.3f} ms, idle share "
           f"{1 - busy_us / 1e3 / wall_ms:.4f}; sum of device times {sum_ms:.3f} ms",
           flush=True)
-    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+    for name, (tot, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"[profile]   {tot / 1e3:10.3f} ms  x{cnt:<5d} {name[:100]}", flush=True)
 
 
 class Recorder:
     """A strategy that keeps a CPU copy of each round's share-step inputs
-    and outputs (X, state, key, X', state', bytes)."""
+    and outputs (X, the mixing operand it was given, state, key, degree,
+    the participation mask or None, X', state', bytes): under churn the
+    operand is the churn-reweighted one and the degree the round's own."""
 
     def __init__(self, inner):
         self.inner, self.log = inner, []
@@ -1288,10 +1439,15 @@ class Recorder:
     def __getattr__(self, name):
         return getattr(self.inner, name)
 
-    def round(self, X, W, state, key=None, degree=1.0, rnd=0):
+    def round(self, X, W, state, key=None, degree=1.0, rnd=0, **kw):
+        from repro_torch.core.topology import SparseTopology
+
         cpu = lambda st: {k: v.cpu().clone() for k, v in st.items()} if st else st
-        before = (X.cpu().clone(), cpu(state), key)
-        X2, state, nbytes = self.inner.round(X, W, state, key=key, degree=degree, rnd=rnd)
+        Wc = (SparseTopology(W.nbr.cpu(), W.w.cpu(), W.w_self.cpu())
+              if isinstance(W, SparseTopology) else W.cpu())
+        act = kw["act"].cpu() if "act" in kw else None
+        before = (X.cpu().clone(), Wc, cpu(state), key, degree, act)
+        X2, state, nbytes = self.inner.round(X, W, state, key=key, degree=degree, rnd=rnd, **kw)
         self.log.append((*before, X2.cpu().clone(), cpu(state), nbytes))
         return X2, state, nbytes
 
@@ -1301,8 +1457,19 @@ class Recorder:
 # (cuDNN's against the CPU's) moves a parameter by ~lr; eps = 1e-3 keeps
 # the step Lipschitz in the gradient (tests/test_torch_optim.py says the
 # same of its engine run)
+CHURN_FAULTS = dict(msg_loss=0.2, latency_spike_prob=0.2, corrupt_prob=0.2, seed=1)
 REFERENCE_CASES = (  # (label, engine knobs, "whole" run or share-step "replay")
     ("full", dict(sharing="full"), "whole"),
+    ("faults-sparse", dict(participation=0.9, faults=dict(CHURN_FAULTS, crashes=((5, 0, 1),))),
+     "whole"),
+    ("faults-dense", dict(mixing="dense", faults=dict(msg_loss=0.3, seed=2)), "whole"),
+    ("secure-faults", dict(SECURE_CFG, faults=dict(latency_spike_prob=0.2, corrupt_prob=0.2,
+                                                   crashes=((5, 1, 2),), seed=3)), "whole"),
+    ("churn-topk", dict(sharing="topk", budget=0.1, payload_quant=True, participation=0.7),
+     "replay"),
+    ("churn-choco", dict(sharing="choco", budget=0.1, participation=0.7), "replay"),
+    ("churn-randomk", dict(sharing="randomk", budget=0.1, participation=0.7), "whole"),
+    ("churn-quant", dict(sharing="quant", participation=0.7), "replay"),
     ("secure", SECURE_CFG, "whole"),
     ("topk", dict(sharing="topk", budget=0.1, payload_quant=True), "replay"),
     ("choco", dict(sharing="choco", budget=0.1), "replay"),
@@ -1317,19 +1484,24 @@ REFERENCE_CASES = (  # (label, engine knobs, "whole" run or share-step "replay")
 def phase_reference():
     """At N=16, width 8, 2 rounds, on the card and on the CPU (plain
     twins, CPU convolutions) from one set of parameters: full sharing,
-    secure aggregation under churn with recovery, the dynamic overlay,
-    uniform random-k (its indices come from keys, not from X, so its run is
-    continuous), and Nesterov momentum and AdamW on full sharing must agree
-    after the run within 1e-4, with equal bytes and fault counters.  TopK
-    (int8) and CHOCO-SGD, both with the histogram selector, and quantized
-    sharing with stochastic rounding: every share step of the card's run,
-    replayed on the CPU from the same inputs and key, must agree within
-    1e-4, and so must the bytes.  (Across whole runs these are
+    full sharing under faults (message loss, spikes, corruption and a crash
+    window at participation 0.9; message loss on the dense W), secure
+    aggregation under churn with recovery (and with spikes, corruption and
+    a crash window), the dynamic overlay, uniform random-k (its indices
+    come from keys, not from X, so its run is continuous; also under churn
+    at participation 0.7), and Nesterov momentum and AdamW on full sharing
+    must agree after the run within 1e-4, with equal bytes and fault
+    counters.  TopK (int8) and CHOCO-SGD, both with the histogram
+    selector, and quantized sharing with stochastic rounding, each alone
+    and under churn: every share step of the card's run, replayed on the
+    CPU from the same inputs (the operand, degree and mask it was given)
+    and key, must agree within 1e-4, with equal bytes, and leave the down
+    rows' state bitwise as it was.  (Across whole runs these are
     discontinuous: a fp32 rounding of local training can move a coordinate
     across the top-k threshold or an int8 code boundary, floor(y + u)'s
     included.  Their whole-run difference is printed.)"""
     import torch
-    from repro_torch.core.engine import make_strategy
+    from repro_torch.core.faults import STAT_KEYS
     from repro_torch.utils.pytree import tree_map
 
     for label, knobs, mode in REFERENCE_CASES:
@@ -1340,7 +1512,7 @@ def phase_reference():
                                init_params=init, **knobs)
         full = mode == "whole"
         if not full:
-            hist = {"selector": "hist"} if label in ("topk", "choco") else {}
+            hist = {"selector": "hist"} if label.split("-")[-1] in ("topk", "choco") else {}
             rec = Recorder(dataclasses.replace(gpu.sharing, **hist))
             gpu.sharing = gpu.steps.sharing = rec
             cpu.sharing = cpu.steps.sharing = dataclasses.replace(cpu.sharing, **hist)
@@ -1352,47 +1524,66 @@ def phase_reference():
               f"sim_time_s gpu={gpu.sim_time_s} cpu={cpu.sim_time_s}", flush=True)
         if gpu.bytes_sent != cpu.bytes_sent or gpu.history[-1].keys() != cpu.history[-1].keys():
             raise AssertionError("bytes_sent or the history keys differ between card and CPU")
-        if gpu.history[-1].get("recovery_bytes") != cpu.history[-1].get("recovery_bytes"):
-            raise AssertionError("recovery_bytes differ between card and CPU")
+        counters = [{k: e.history[-1].get(k) for k in STAT_KEYS} for e in (gpu, cpu)]
+        if counters[0] != counters[1] or gpu.scheduler._fault_totals != cpu.scheduler._fault_totals:
+            raise AssertionError(f"fault counters differ between card and CPU: {counters}")
+        if "faults" in knobs:
+            print(f"[reference] {label}: counters {counters[0]}", flush=True)
+            if counters[0]["faults_injected"] == 0:
+                raise AssertionError(f"{label}: no fault was injected")
         if full:
             if not diff <= 1e-4:
                 raise AssertionError(f"card and CPU disagree: {diff}")
             continue
-        strategy = dataclasses.replace(make_strategy(cpu.dl), **hist)
-        for r, (X, state, key, X2, state2, nbytes) in enumerate(rec.log):
-            X2c, state2c, nbc = strategy.round(X, cpu._mix_static, state, key=key,
-                                               degree=cpu._mean_degree)
+        strategy = cpu.sharing
+        for r, (X, W, state, key, degree, act, X2, state2, nbytes) in enumerate(rec.log):
+            # (before the replay, which updates ``state`` in place)
+            frozen = act is None or all(torch.equal(state2[k][act == 0], state[k][act == 0])
+                                        for k in state2)
+            X2c, state2c, nbc = strategy.round(X, W, state, key=key, degree=degree,
+                                               **({} if act is None else {"act": act}))
             d = max([float((X2 - X2c).abs().max())]
                     + [float((state2[k] - state2c[k]).abs().max()) for k in state2])
             print(f"[reference] {label} round {r}: share step card vs CPU "
-                  f"from the same inputs: max diff {d}", flush=True)
-            if not d <= 1e-4 or nbc != nbytes:
-                raise AssertionError(f"share step card and CPU disagree: {d}, {nbytes} vs {nbc}")
+                  f"from the same inputs: max diff {d}"
+                  + ("" if act is None else f"; {int((act == 0).sum())} down rows' state "
+                     f"unchanged on the card: {frozen}"), flush=True)
+            if not d <= 1e-4 or nbc != nbytes or not frozen:
+                raise AssertionError(f"share step card and CPU disagree: {d}, {nbytes} vs {nbc}, "
+                                     f"down rows frozen: {frozen}")
         if len(rec.log) != 2:
             raise AssertionError(f"{len(rec.log)} share steps recorded, want 2")
 
 
 def phase_examples():
-    """The two study entry points as a user runs them on the card, at
+    """The study entry points as a user runs them on the card, at
     ``--rounds 4`` (16 nodes, the MLP): ``repro_torch.topologies_dynamic``
-    (ring, 5-regular, fully connected, dynamic) and
+    (ring, 5-regular, fully connected, dynamic),
     ``repro_torch.sparsification`` (full, random-k, TopK, CHOCO-SGD at a
-    10% budget), each with the accuracy and MB/node it prints and the
+    10% budget), ``repro_torch.faults`` (the message-loss sweep, with
+    corruption 0.05 and a crash window), ``repro_torch.churn``
+    (participation 1.0 to 0.5) and ``repro_torch.fl_vs_dl`` (FedAvg
+    against D-PSGD), each with the accuracy and MB/node it returns and the
     kernel launches of its run; the sparse overlays must reach the gather
     merge and the payload strategies the payload merge."""
     import math
 
-    from repro_torch import sparsification, topologies_dynamic
+    from repro_torch import churn, faults, fl_vs_dl, sparsification, topologies_dynamic
 
     res = {}
-    for name, mod, must in (("topologies_dynamic", topologies_dynamic, ("gossip_mix_rows",)),
-                            ("sparsification", sparsification,
-                             ("gossip_mix_rows", "payload_mix_rows", "abs_histogram_rows"))):
+    merge = ("gossip_mix_rows",)
+    for name, mod, argv, must in (
+            ("topologies_dynamic", topologies_dynamic, [], merge),
+            ("sparsification", sparsification, [],
+             ("gossip_mix_rows", "payload_mix_rows", "abs_histogram_rows")),
+            ("faults", faults, ["--corrupt", "0.05", "--crash", "3:1:3"], merge),
+            ("churn", churn, [], merge),
+            ("fl_vs_dl", fl_vs_dl, [], merge)):
         reset_launches()
         t = time.time()
-        out = mod.main(["--rounds", "4"])
+        out = mod.main(["--rounds", "4"] + argv)
         launches = read_launches()
-        print(f"[examples] {name} --rounds 4 in {time.time() - t:.2f} s: "
+        print(f"[examples] {name} --rounds 4 {' '.join(argv)} in {time.time() - t:.2f} s: "
               + ", ".join(f"{k} acc {a:.4f} MB/node {b / 1e6:.3f}" for k, (a, b) in out.items())
               + f"; launches={launches}", flush=True)
         if not all(math.isfinite(a) and b > 0 for a, b in out.values()):
@@ -1816,6 +2007,19 @@ def main():
             time_sampled_share_step(eng, path)
         del eng
         release()
+    # the fault axis: the guard's passes are listed among every kernel of
+    # the profiled round (a snapshot copy, isfinite's eq/abs/ne/mul/all,
+    # a where) and timed alone
+    by_path["faults"], eng = phase_faults_path()
+    phase_profile(eng, "faults", top=None)
+    time_guard(eng)
+    del eng
+    release()
+    by_path["churn-topk"], eng = phase_churn_topk_path()
+    profile_churn_topk_round(eng)
+    time_share_step(eng, "churn-topk")
+    del eng
+    release()
     phase_reference()
     release()
     phase_examples()

@@ -15,11 +15,13 @@ overlays and the dynamic one (a new random d-regular graph every round,
 strategies (random-k with either sampler, TopK, CHOCO-SGD with either
 compressor; payload wire on or off, int8 payload codec) and secure
 aggregation (with the seed-recovery pass under churn); churn (per-round
-participation masks, node- or machine-level) with full sharing and
-secure aggregation; per-node learning-rate multipliers; checkpoints of
-the engine state (``save_state``/``load_state``, in the JAX package's
-file format); no fault injection.  ``DLConfig.validate()`` raises
-``NotImplementedError`` for every knob outside it.
+participation masks, node- or machine-level) with every sharing strategy;
+fault injection (``core/faults.py`` ``FaultPlan``: message loss, crash
+windows, latency spikes, payload corruption with the rollback guard);
+per-node learning-rate multipliers; checkpoints of the engine state
+(``save_state``/``load_state``, in the JAX package's file format).
+``DLConfig.validate()`` raises ``NotImplementedError`` for every knob
+outside it.
 
 Device and numerics: the engine runs on the card (``device=None`` means
 ``"cuda"``) and raises if there is none; pass ``device="cpu"`` to run on
@@ -41,6 +43,7 @@ import torch
 from torch.func import vmap
 
 from repro_torch import prng
+from repro_torch.core import faults as faults_lib
 from repro_torch.core import sharing as sharing_lib
 from repro_torch.core.network import (
     NetworkModel,
@@ -106,7 +109,7 @@ class DLConfig:
     shard_backend: str = "auto"  # auto | ppermute | gather
     participation: float = 1.0
     churn_machines: int = 0
-    faults: Optional[Any] = None
+    faults: Optional[faults_lib.FaultPlan] = None
     secure_recovery: bool = False
     network: str = "none"       # none | lan | wan
     compute_time_s: float = 0.0
@@ -157,19 +160,13 @@ class DLConfig:
                 bad("randk_sampler applies to sharing='randomk' only")
 
         if self.semantics in ("local", "async"):
-            todo(f"semantics={self.semantics!r}")
+            todo(f"semantics={self.semantics!r} (ROADMAP Queue 1 item 5)")
         if not sharing_lib.is_full_sharing(self.sharing):
             sharing_lib.make_sharing(self.sharing)  # an unknown name raises
-        if self.participation < 1.0 and not (self.secure or sharing_lib.is_full_sharing(self.sharing)):
-            # TopK's last_shared and CHOCO's x̂ are updated in place; a down
-            # node's would have to be restored
-            todo(f"churn (participation < 1) with sharing={self.sharing!r}")
-        if self.faults is not None:
-            todo("fault injection (faults)")
         if self.shard_devices > 0:
-            todo("node sharding (shard_devices > 0)")
+            todo("node sharding (shard_devices > 0; ROADMAP Queue 1 item 6)")
         if self.cohort_capacity > 0:
-            todo("the async cohort path (cohort_capacity > 0)")
+            todo("the async cohort path (cohort_capacity > 0; ROADMAP Queue 1 item 5)")
         if self.backend == "processes":
             todo("backend='processes'")
         if self.batch_keying == "node":
@@ -214,6 +211,20 @@ class DLConfig:
         if self.secure_recovery and not self.secure:
             bad("secure_recovery=True is the seed-recovery pass of secure "
                 "aggregation; it needs secure=True")
+        if self.faults is not None:
+            self.faults.validate()
+            for node, _, _ in self.faults.crashes:
+                if node >= self.n_nodes:
+                    bad(f"FaultPlan crash node {node} out of range for "
+                        f"n_nodes={self.n_nodes}")
+            if self.chunk_rounds <= 0:
+                bad("faults need chunk_rounds > 0 (the JAX package runs "
+                    "them on its scanned chunk path only)")
+            if self.secure and self.faults.msg_loss > 0:
+                bad("secure=True with FaultPlan.msg_loss > 0 is not "
+                    "modeled: per-edge loss would need per-edge mask "
+                    "recovery (secure_recovery covers node-level churn "
+                    "and crashes; latency spikes and corruption compose)")
         if self.batch_keying != "stream":
             bad(f"unknown batch_keying {self.batch_keying!r} (stream|node)")
         if self.cohort_capacity < 0:
@@ -421,6 +432,9 @@ class RoundEngine:
             base_key=prng.key(dl.seed + 17),
             live_edges=live_edges,
             lr_scales=self.lr_scales,
+            faults=dl.faults,
+            fault_key=(faults_lib.fault_key(dl.faults, dl.seed)
+                       if dl.faults is not None else None),
         )
         self.scheduler = make_scheduler(self)
         self.history: List[Dict] = []

@@ -169,22 +169,61 @@ def participation_reweight(W, active):
 def participation_reweight_sparse(topo: SparseTopology, active):
     """Sparse-form :func:`participation_reweight`: neighbour slots with a
     down endpoint get weight 0 and the freed mass returns to ``w_self``
-    (a down node's row becomes the identity); O(N·D)."""
+    (a down node's row becomes the identity); O(N·D).  A new topology
+    (``SparseTopology.reweighted``)."""
     m = active.to(torch.float32)
     w = topo.w.to(torch.float32) * (m[:, None] * m[topo.nbr.long()])
-    return SparseTopology(topo.nbr, w, 1.0 - w.sum(-1))
+    return topo.reweighted(w, 1.0 - w.sum(-1))
+
+
+def live_edge_mask(nbr, live, active=None) -> np.ndarray:
+    """(N, E) bool host mask of the edges a churn round sends on: the
+    static edges ``live`` (N, E) whose endpoints are both up in
+    ``active`` (N,) (all of them where ``active`` is None); ``nbr`` (N, E)
+    holds the far endpoints, None for the columns of a dense W."""
+    if active is None:
+        return np.asarray(live, bool)
+    m = np.asarray(active) > 0
+    far = m[None, :] if nbr is None else m[nbr]
+    return live & m[:, None] & far
 
 
 def participation_deg_eff(nbr, live, active) -> np.float32:
     """The churn round's mean live degree, as the reference's reweights
     compute it (live edges over active nodes, one fp32 division), from
-    host arrays: ``live`` (N, E) bool marks the static edges, ``nbr``
-    (N, E) their far endpoints (None for the columns of a dense W),
-    ``active`` (N,) the round's mask."""
-    m = np.asarray(active) > 0
-    far = m[None, :] if nbr is None else m[nbr]
-    edges = np.count_nonzero(live & m[:, None] & far)
-    return np.float32(edges) / np.float32(max(int(m.sum()), 1))
+    host arrays as :func:`live_edge_mask` takes them."""
+    edges = np.count_nonzero(live_edge_mask(nbr, live, active))
+    return np.float32(edges) / np.float32(max(int(np.count_nonzero(np.asarray(active) > 0)), 1))
+
+
+def edge_reweight(W, live):
+    """Renormalize a row-stochastic (N, N) mixing matrix for a per-edge
+    {0,1} mask (message loss): ``live[i, j] = 0`` drops the message
+    j -> i, and the freed mass returns to the receiver's diagonal, so rows
+    stay stochastic.  Composes with :func:`participation_reweight`."""
+    Wf = W.to(torch.float32)
+    diag = torch.eye(Wf.shape[0], dtype=torch.float32, device=Wf.device)
+    off = Wf * (1.0 - diag) * live.to(torch.float32)
+    return off + diag * (1.0 - off.sum(1, keepdim=True))
+
+
+def edge_reweight_sparse(topo: SparseTopology, live):
+    """Sparse-form :func:`edge_reweight` over the (N, D) neighbour slots:
+    lost slots get weight 0 and the freed mass returns to ``w_self``.  A
+    new topology (``SparseTopology.reweighted``)."""
+    w = topo.w.to(torch.float32) * live.to(torch.float32)
+    return topo.reweighted(w, 1.0 - w.sum(-1))
+
+
+def edge_readmit_sparse(topo0: SparseTopology, live):
+    """Re-admission: the effective topology recomputed from the pristine
+    table ``topo0`` and the current (N, D) live mask, the exact inverse of
+    :func:`edge_reweight_sparse`.  When every slot is live the pristine
+    object itself comes back: its ``w_self`` was built in float64 before
+    the fp32 cast, which an fp32 ``1 - w.sum(-1)`` could miss by an ulp."""
+    if bool((torch.as_tensor(live) == 1.0).all()):
+        return topo0
+    return edge_reweight_sparse(topo0, torch.as_tensor(live))
 
 
 class FullSharing:
@@ -315,10 +354,17 @@ class TopKSharing(_PayloadSharing):
     whose accumulated change since they were last shared is largest; the
     residual stays in ``last_shared``, the Model module's extra state."""
 
+    # a churn round passes the participation mask: a down node's
+    # last_shared must not record a payload it never sent
+    needs_act = True
+
     def init_state(self, X):
         return {"last_shared": X.to(torch.float32).clone()}
 
-    def round(self, X, W, state, key=None, degree=1.0, rnd=0):
+    def round(self, X, W, state, key=None, degree=1.0, rnd=0, act=None):
+        """``act``: the round's (N,) participation mask on X's device, or
+        None; a down row's ``last_shared`` stays bitwise as it was (its
+        scatter rewrites the values already there)."""
         k = self._k(X)
         last = state["last_shared"]
         selector = _resolve_selector(self.selector, X)
@@ -328,7 +374,9 @@ class TopKSharing(_PayloadSharing):
         X2 = self._aggregate(X, W, idx, valf, sorted_idx=selector == "hist")
         # error feedback: record what the receivers reconstructed, so a
         # quantization residual stays in the delta and is shared again
-        last.scatter_(1, idx.long(), valf)
+        sent = valf if act is None else torch.where(act[:, None] > 0, valf,
+                                                     last.gather(1, idx.long()))
+        last.scatter_(1, idx.long(), sent)
         return X2, state, self._nbytes(degree, k, item, header)
 
 
@@ -355,7 +403,15 @@ class ChocoSGD(_PayloadSharing):
         # the q payload in both modes; the dense x̂ mix is local state
         return self._payload_stage_bytes(n, p)
 
-    def round(self, X, W, state, key=None, degree=1.0, rnd=0):
+    # a churn round passes the participation mask: a down node's x̂ must
+    # not take a q it never sent
+    needs_act = True
+
+    def round(self, X, W, state, key=None, degree=1.0, rnd=0, act=None):
+        """``act``: the round's (N,) participation mask on X's device, or
+        None; a down row's x̂ takes +0.0 at its payload's coordinates,
+        which leaves every value x̂ can hold bitwise as it was (x̂ starts at
+        +0.0 and only adds, so it never holds -0.0)."""
         k = self._k(X)
         xhat = state["xhat"]
         Xf = X.to(torch.float32)
@@ -366,6 +422,8 @@ class ChocoSGD(_PayloadSharing):
             idx = _randk_idx(key, X.shape, k, X.device).long()
         valf, item, header = _wire(diff.gather(1, idx), self.quantize, torch.float32)
         del diff
+        if act is not None:
+            valf = torch.where(act[:, None] > 0, valf, 0.0)
         xhat.scatter_add_(1, idx, valf)
         X2 = Xf + self.gamma * (apply_W(W, xhat) - xhat)
         return X2.to(X.dtype), state, self._nbytes(degree, k, item, header)

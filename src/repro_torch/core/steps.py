@@ -1,29 +1,36 @@
 """Step layer: what one node-stacked round does.
 
 ``RoundSteps`` holds the static pieces of an experiment (loss, optimizer,
-sharing strategy, per-node compute times, link matrices) and no mutable
-state.  The caller threads the flat (N, P) parameter matrix X through
-:meth:`RoundSteps.train_and_mix`.  Churn (a per-round participation mask)
-is ported; fault injection is not.
+sharing strategy, per-node compute times, link matrices, the fault plan)
+and no mutable state.  The caller threads the flat (N, P) parameter
+matrix X through :meth:`RoundSteps.train_and_mix`.  Churn (a per-round
+participation mask) and fault injection (``core/faults.py``: message
+loss, latency spikes, payload corruption with the rollback guard; crash
+windows reach the step as churn) are ported.
 
-Under churn the round's degree, bytes and seed-recovery bytes depend on
-the mask.  The mask is made on the host, so they are computed there, in
-the reference's fp32 operation order, and the device is never read
-inside a round.
+The participation masks and the fault draws are made on the host, so the
+round's degree, bytes, seed-recovery bytes and the fault counters that
+depend on them alone are computed there, in the reference's fp32
+operation order; the guard's detections stay on the device until the
+scheduler's one sync per span.  The device is never read inside a round.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import grad, vmap
 
 from repro_torch import prng
+from repro_torch.core import faults as faults_lib
 from repro_torch.core.network import node_round_times
 from repro_torch.core.secure import SEED_SHARE_BYTES
 from repro_torch.core.sharing import (
+    edge_reweight,
+    edge_reweight_sparse,
+    live_edge_mask,
     participation_deg_eff,
     participation_reweight,
     participation_reweight_sparse,
@@ -45,6 +52,26 @@ def node_where(mask, new, old):
         lambda n, o: torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o),
         new, old,
     )
+
+
+def node_where_(mask, new, old):
+    """:func:`node_where` written into ``new``'s leaves in place."""
+    def f(n, o):
+        torch.where(mask.reshape((-1,) + (1,) * (n.dim() - 1)) > 0, n, o, out=n)
+        return n
+
+    return tree_map(f, new, old)
+
+
+class RoundFaults(NamedTuple):
+    """One round's fault draws (``core/faults.py``), each as ``(device
+    tensor, host array)`` or None: ``live`` and ``spike`` (N, E) per-edge
+    {0,1} over the mixing operand's edge layout (neighbour slots, or the
+    columns of a dense W), ``corrupt`` (N,) {0,1}."""
+
+    live: Optional[Tuple[torch.Tensor, np.ndarray]] = None
+    spike: Optional[Tuple[torch.Tensor, np.ndarray]] = None
+    corrupt: Optional[Tuple[torch.Tensor, np.ndarray]] = None
 
 
 @dataclasses.dataclass(eq=False)
@@ -72,6 +99,10 @@ class RoundSteps:
     base_key: prng.Key = prng.key(17)
     live_edges: Optional[Tuple[Optional[np.ndarray], np.ndarray]] = None
     lr_scales: Optional[torch.Tensor] = None
+    # fault injection (core/faults.py): the plan and its root key; None
+    # leaves out every fault branch
+    faults: Optional[faults_lib.FaultPlan] = None
+    fault_key: Optional[prng.Key] = None
 
     def local_train(self, params, opt_state, bx, by, active=None):
         """``bx.shape[0]`` SGD steps on every node at once: per-node
@@ -91,11 +122,12 @@ class RoundSteps:
             opt_state = new_opt
         return params, opt_state
 
-    def round_time(self, Wm, nbytes: float, deg_eff: float, active=None):
+    def round_time(self, Wm, nbytes: float, deg_eff: float, active=None, lat_mult=None):
         """Simulated synchronous round wall-clock, fp32 on the device: the
         max over nodes of ``network.node_round_times`` (a down node's time
         counts 0).  For a SparseTopology the per-edge latency and goodput
-        are gathered through the neighbor table."""
+        are gathered through the neighbor table.  ``lat_mult`` multiplies
+        each edge's latency (latency spikes), in ``Wm``'s edge layout."""
         dev = self.lat.device
         nb = torch.full((), nbytes, dtype=torch.float32, device=dev)
         per_edge = nb / max(deg_eff, 1e-9) if deg_eff > 0 else torch.zeros_like(nb)
@@ -110,6 +142,8 @@ class RoundSteps:
             offdiag = 1.0 - torch.eye(n, dtype=torch.float32, device=dev)
             A = (Wm * offdiag > 0).to(torch.float32)
             lat, gp = self.lat, self.goodput
+        if lat_mult is not None:
+            lat = lat * lat_mult
         node_t = node_round_times(A, lat, gp, per_edge, self.compute_node,
                                   self.parallel_sends)
         if active is not None:
@@ -133,7 +167,8 @@ class RoundSteps:
         kwargs)``.  Under churn (``act`` as in :meth:`train_and_mix`) the
         mixing operand is reweighted on the device, the degree is computed
         on the host from ``live_edges`` (this round's edges; the static
-        operand's by default), and a strategy that ``needs_act`` gets the
+        operand's by default), and a strategy that ``needs_act`` (secure
+        recovery; TopK and CHOCO, to freeze a down node's state) gets the
         mask as ``act=``."""
         key = prng.fold_in(self.base_key, rnd)
         if act is None:
@@ -147,34 +182,84 @@ class RoundSteps:
         return Wm, deg, key, share_kw
 
     def train_and_mix(self, X, opt_state, share_state, bx, by, W, rnd: int = 0, act=None,
-                      live_edges=None):
+                      live_edges=None, faults: Optional[RoundFaults] = None):
         """One round: local steps (in place on X), then the share/mix step.
 
         ``act`` is None for full participation, else the round's mask as
-        ``(device (N,) fp32 tensor, host (N,) numpy array)``: the mixing
-        operand is churn-reweighted on the device, the degree and bytes
-        are computed on the host (from ``live_edges``, the round's edges of
-        a dynamic overlay), and down nodes keep their parameters.
-        Returns ``(X', opt_state, share_state, nbytes, sim_t,
-        recovery_bytes)``: the bytes each node sent and the seed-recovery
-        bytes as fp32-rounded floats, and the simulated round time as a
-        0-d device tensor."""
+        ``(device (N,) fp32 tensor, host (N,) numpy array)`` (churn and
+        crash windows): the mixing operand is churn-reweighted on the
+        device, the degree and bytes are computed on the host (from
+        ``live_edges``, the round's edges of a dynamic overlay), and down
+        nodes keep their parameters and their sharing state.
+
+        With a fault plan, ``faults`` holds the round's draws and the
+        round follows the reference's order: a snapshot of X, the
+        optimizer state and the sharing state (when corruption is on);
+        local steps; the churn reweight; lost edges dropped from the mixing
+        operand (bytes and link time are still charged on the churn-level
+        operand); the share step; corruption of active rows after the mix;
+        the freeze of down nodes; the guard's rollback of non-finite
+        active rows to the snapshot.
+
+        Returns ``(X', opt_state, share_state, nbytes, sim_t, fstats)``:
+        the bytes each node sent (seed-recovery bytes included) as an
+        fp32-rounded float, the simulated round time as a 0-d device
+        tensor, and the ``faults.STAT_KEYS`` counters, floats or (the
+        guard's detections) 0-d device tensors."""
+        plan = self.faults
+        fstats = faults_lib.zero_stats()
         active = None if act is None else act[0]
+        guard = plan is not None and plan.corrupt_prob > 0
+        if guard:  # local steps and TopK/CHOCO update these in place
+            snap = (X.clone(), tree_map(torch.clone, opt_state),
+                    tree_map(torch.clone, share_state))
         params = tree_unvector(X, self.template)
         _, opt_state = self.local_train(params, opt_state, bx, by, active)
         Wm, deg, key, share_kw = self.share_operands(W, rnd, act, live_edges)
+        Wm_mix, lat_mult = Wm, None
+        if plan is not None and plan.edge_faults:
+            live, spike = faults.live, faults.spike
+            reweight = edge_reweight_sparse if isinstance(Wm, SparseTopology) else edge_reweight
+            Wm_mix = reweight(Wm, live[0])
+            sent = live_edge_mask(*(live_edges or self.live_edges),
+                                  None if act is None else act[1])
+            hit = float(np.count_nonzero(sent & (live[1] == 0))
+                        + np.count_nonzero(sent & (spike[1] > 0)))
+            if plan.latency_spike_prob > 0:
+                lat_mult = 1.0 + spike[0] * (plan.latency_spike_factor - 1.0)
+            # drops are absorbed by the renormalization, spikes by late
+            # delivery: survived by design
+            fstats["faults_injected"] += hit
+            fstats["faults_survived"] += hit
         X2, share_state, nbytes = self.sharing.round(
-            X, Wm, share_state, key=key, degree=deg, rnd=rnd, **share_kw
+            X, Wm_mix, share_state, key=key, degree=deg, rnd=rnd, **share_kw
         )
         nbytes = np.float32(nbytes)
-        rec = np.float32(0.0)
-        if share_kw:
+        if act is not None and getattr(self.sharing, "recovery", False):
             rec = self._secure_recovery_bytes(act[1])
             nbytes = nbytes + rec
+            fstats["recovery_bytes"] += float(rec)
+        if guard:
+            cmask, cmask_np = faults.corrupt
+            if act is not None:  # a down node received nothing
+                cmask, cmask_np = cmask * active, cmask_np * act[1]
+            # the strategies return a fresh X2: corrupt it in place
+            X2 = faults_lib.corrupt_rows_(X2, cmask, plan.corrupt_mode)
+            fstats["faults_injected"] += float(np.count_nonzero(cmask_np))
         if active is not None:
             X2 = torch.where(active[:, None] > 0, X2, X)
+        if guard:
+            bad = faults_lib.nonfinite_rows(X2)
+            if active is not None:
+                bad = bad * active
+            good = 1.0 - bad
+            X0, opt0, share0 = snap
+            torch.where(good[:, None] > 0, X2, X0, out=X2)
+            opt_state = node_where(good, opt_state, opt0)
+            share_state = node_where_(good, share_state, share0)
+            fstats["faults_detected"] = fstats["faults_recovered"] = bad.sum()
         if self.lat is not None:
-            sim_t = self.round_time(Wm, float(nbytes), float(deg), active)
+            sim_t = self.round_time(Wm, float(nbytes), float(deg), active, lat_mult)
         else:
             sim_t = torch.zeros((), dtype=torch.float32, device=X.device)
-        return X2, opt_state, share_state, float(nbytes), sim_t, float(rec)
+        return X2, opt_state, share_state, float(nbytes), sim_t, fstats

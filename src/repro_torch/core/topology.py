@@ -262,6 +262,20 @@ class SparseTopology:
             self._merge[include_self] = (rows, w)
         return self._merge[include_self]
 
+    def reweighted(self, w, w_self) -> "SparseTopology":
+        """A new topology over this one's neighbour table with the weights
+        ``w`` (N, D) and ``w_self`` (N,) (tensors on the table's device).
+        The neighbour ids this one's merge tables were checked for carry
+        over, so building the new tables reads nothing from the device;
+        this object and its cached tables are left as they are."""
+        t = SparseTopology(self.nbr, w, w_self)
+        rows = self.merge_tables()[0]
+        t._merge[True] = (rows, torch.cat([w_self.to(torch.float32)[:, None],
+                                           w.to(torch.float32)], 1))
+        t._merge[False] = (self.merge_tables(include_self=False)[0],
+                           w.to(torch.float32).contiguous())
+        return t
+
     @staticmethod
     def from_graph(g: Graph) -> "SparseTopology":
         nbr, valid = neighbor_table(g.adj)

@@ -3,7 +3,8 @@
 Only the ``"stream"`` keying is ported: one numpy PCG64 stream per round
 fills a (steps, N, B) uniform block, mapped onto each node's partition.
 The engine keeps the dataset on the device and gathers each round's batch
-there by these indices.
+there by these indices.  The federated runner samples per node instead
+(:meth:`NodeBatcher.batch`).
 """
 from __future__ import annotations
 
@@ -32,6 +33,21 @@ class NodeBatcher:
             pad[i, : len(p)] = p
             pad[i, len(p):] = p[0]
         self._lens, self._parts_pad = lens, pad
+
+    def batch(self, round_idx: int, step: int = 0):
+        """(xs (N, B, ...), ys (N, B)) numpy batches, node i's drawn by its
+        own ``default_rng`` stream of (seed, round, step, i), without
+        replacement where its partition holds at least B samples (the
+        federated runner's sampler)."""
+        xs, ys = [], []
+        for i, part in enumerate(self.parts):
+            rng = np.random.default_rng(
+                (self.seed * 1_000_003 + round_idx) * 1_000_003 + step * 65_537 + i
+            )
+            take = rng.choice(part, self.bs, replace=len(part) < self.bs)
+            xs.append(self.x[take])
+            ys.append(self.y[take])
+        return np.stack(xs), np.stack(ys)
 
     def round_indices(self, round_idx: int, steps: int = 1) -> np.ndarray:
         """(steps, N, B) int32 global sample indices for one round, drawn

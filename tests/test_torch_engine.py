@@ -37,7 +37,7 @@ from repro.models.cnn import cnn_apply as jcnn_apply
 from repro.models.cnn import cnn_init as jcnn_init
 from repro.optim import make_optimizer as jmake_optimizer
 from repro.utils.pytree import tree_vector as jtree_vector
-from repro_torch import DLConfig, RoundEngine
+from repro_torch import DLConfig, FaultPlan, RoundEngine
 from repro_torch.convert import params_from_jax
 from repro_torch.core import topology as ttop
 from repro_torch.core.engine import make_strategy
@@ -250,10 +250,14 @@ def _leaves(tree):
 @pytest.mark.parametrize("knob", [
     dict(semantics="local"), dict(semantics="async"), dict(sharing="randomk", semantics="async"),
     dict(sharing="randomk", randk_sampler="strided", shard_devices=2),
-    dict(sharing="int8", faults=object()), dict(sharing="quant", cohort_capacity=4),
-    dict(secure=True, faults=object()), dict(sharing="topk", participation=0.5),
-    dict(sharing="choco", participation=0.5),
-    dict(faults=object()), dict(shard_devices=2), dict(cohort_capacity=4),
+    dict(sharing="int8", faults=FaultPlan(msg_loss=0.1), semantics="local"),
+    dict(sharing="quant", cohort_capacity=4),
+    dict(secure=True, secure_recovery=True, faults=FaultPlan(crashes=((0, 1, 2),)),
+         shard_devices=2),
+    dict(sharing="topk", participation=0.5, semantics="async"),
+    dict(sharing="choco", participation=0.5, cohort_capacity=4),
+    dict(faults=FaultPlan(msg_loss=0.1), semantics="async"), dict(shard_devices=2),
+    dict(cohort_capacity=4),
     dict(backend="processes"), dict(topology="dynamic", batch_keying="node"),
     dict(batch_keying="node"),
 ])
@@ -285,7 +289,8 @@ def test_validate_applies_the_jax_rules(knob):
     dict(secure=True, participation=0.5, secure_recovery=True),
     dict(secure=True, churn_machines=3, secure_recovery=True, mixing="dense"),
     dict(participation=0.5), dict(participation=0.5, churn_machines=2),
-    dict(sharing="topk", churn_machines=2),
+    dict(sharing="topk", churn_machines=2), dict(sharing="topk", participation=0.5),
+    dict(sharing="choco", participation=0.5),
 ])
 def test_validate_accepts_the_ported_secure_and_churn_knobs(knob):
     assert JDLConfig(**knob).validate() is not None

@@ -1,28 +1,53 @@
-"""The port's twins of ``examples/topologies_dynamic.py`` and
-``examples/sparsification.py`` run on the CPU at 4 nodes and 2 rounds,
-through ``DecentralizedRunner``, and give what a ``RoundEngine`` with the
-same settings gives; the process backend still raises."""
+"""The port's twins of ``examples/topologies_dynamic.py``,
+``examples/sparsification.py``, ``examples/faults.py``,
+``examples/churn.py`` and ``examples/fl_vs_dl.py`` run on the CPU at 4
+nodes and 2 rounds, through ``DecentralizedRunner`` (and
+``FederatedRunner``), and give what a ``RoundEngine`` with the same
+settings gives; the process backend and the unported schedulers still
+raise."""
 import math
 
 import pytest
 
-from repro_torch import sparsification, topologies_dynamic
+from repro_torch import churn, faults, fl_vs_dl, sparsification, topologies_dynamic
 from repro_torch.core import DecentralizedRunner, DLConfig
 
 
-@pytest.mark.parametrize("mod,names", [
-    (topologies_dynamic, ["ring", "regular", "fully", "dynamic"]),
-    (sparsification, ["full", "randomk", "topk", "choco"]),
-])
-def test_entry_point_runs_on_the_cpu(mod, names, capsys):
+@pytest.mark.parametrize("mod,names,printed", [
+    (topologies_dynamic, ["ring", "regular", "fully", "dynamic"], None),
+    (sparsification, ["full", "randomk", "topk", "choco"], None),
+    (faults, [f"msg_loss={p}" for p in (0.0, 0.05, 0.1, 0.2)], "injected"),
+    (churn, [f"participation={p}" for p in (1.0, 0.9, 0.7, 0.5)], "participation"),
+    (fl_vs_dl, ["fedavg", "d-psgd"], "FedAvg"),
+], ids=lambda v: getattr(v, "__name__", "").rsplit(".", 1)[-1] or None)
+def test_entry_point_runs_on_the_cpu(mod, names, printed, capsys):
     out = mod.main(["--device", "cpu", "--nodes", "4", "--rounds", "2"])
     assert list(out) == names
     for acc, sent in out.values():
         assert 0.0 <= acc <= 1.0 and math.isfinite(acc) and sent > 0
     text = capsys.readouterr().out
-    assert all(name in text for name in names)
+    assert all(name in text for name in (names if printed is None else [printed]))
     if mod is sparsification:  # a 10% budget sends far less than full sharing
         assert out["randomk"][1] < 0.25 * out["full"][1]
+    if mod is churn:  # a down node sends nothing
+        assert out["participation=0.5"][1] < out["participation=1.0"][1]
+
+
+def test_faults_twin_counts_what_it_injects(capsys):
+    """Corruption and a crash window: the printed counters conserve
+    (injected == detected + survived) and every detection rolls back."""
+    faults.main(["--device", "cpu", "--nodes", "4", "--rounds", "3", "--corrupt", "0.3",
+                 "--crash", "1:0:2"])
+    rows = [line.split() for line in capsys.readouterr().out.splitlines()[1:]]
+    assert len(rows) == 4
+    for _, _, _, inj, det, surv, rec, _ in rows:
+        assert int(inj) == int(det) + int(surv) and int(det) == int(rec)
+        assert int(surv) >= 2  # node 1 down in rounds 0 and 1
+
+
+def test_churn_twin_raises_for_unported_semantics():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        churn.main(["--device", "cpu", "--semantics", "async"])
 
 
 def test_runner_wraps_the_engine():

@@ -49,7 +49,9 @@ SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.ker
                  "repro_torch.core.engine", "repro_torch.core.node", "repro_torch.models.mlp",
                  "repro_torch.optim.optimizers", "repro_torch.checkpoint.checkpoint",
                  "repro_torch.utils.io", "repro_torch.topologies_dynamic",
-                 "repro_torch.sparsification")
+                 "repro_torch.sparsification", "repro_torch.core.faults",
+                 "repro_torch.core.federated", "repro_torch.faults",
+                 "repro_torch.churn", "repro_torch.fl_vs_dl")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -729,3 +729,70 @@ def test_payload_merge_on_random_k_rows_on_gpu(sampler):
     got = sg.payload_mix_rows(X, idx, val, rows, w, sorted_idx=True)
     assert sg.payload_mix_rows.launches == before + 1
     assert torch.equal(got, sg.payload_mix_rows_ref(X, idx, val, rows, w))
+
+
+def _quickstart_engine(device, init=None, **knobs):
+    """The quickstart configuration at N=16, GN-LeNet width 8, 2 rounds,
+    LAN model, with ``knobs`` (``faults`` a FaultPlan keyword dict)."""
+    from repro_torch import DLConfig, FaultPlan, RoundEngine
+    from repro_torch.data import NodeBatcher, make_dataset, sharding_partition
+    from repro_torch.models.cnn import cnn_init
+    from repro_torch.optim import make_optimizer
+    from repro_torch.quickstart import acc_fn, loss_fn
+
+    if "faults" in knobs:
+        knobs = {**knobs, "faults": FaultPlan(**knobs["faults"])}
+    ds = make_dataset("cifar10", n_train=2048, n_test=128)
+    parts = sharding_partition(ds.train_y, 16, 2, seed=0)
+    dl = DLConfig(n_nodes=16, topology="regular", degree=5, local_steps=2, batch_size=8,
+                  rounds=2, chunk_rounds=2, eval_every=1, network="lan", **knobs)
+    return RoundEngine(dl, lambda g: cnn_init(g, width=8), loss_fn, acc_fn,
+                       make_optimizer("sgd", 0.05),
+                       NodeBatcher(ds.train_x, ds.train_y, parts, 8, seed=0),
+                       init_params=init, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs,launches", [
+    (dict(participation=0.9, faults=dict(msg_loss=0.2, latency_spike_prob=0.2,
+                                          corrupt_prob=0.2, crashes=((5, 0, 1),), seed=1)),
+     {"gossip_mix_rows": 2}),
+    (dict(sharing="topk", budget=0.1, payload_quant=True, participation=0.7),
+     {"abs_histogram_rows": 4, "quantize": 2, "dequantize": 2, "payload_mix_rows": 2}),
+], ids=["faults", "churn-topk"])
+def test_fault_and_churn_engines_on_gpu_match_the_cpu(knobs, launches):
+    """The faults engine (one merge per round on the loss-reweighted table)
+    and TopK int8 under churn on the card against the CPU from the same
+    parameters: equal fault counters and bytes, parameters within 1e-4
+    (TopK: a coordinate at the threshold could part the two, so its run
+    uses the histogram selector on both and a 1e-4 bound holds at this
+    size), and the launches the path makes."""
+    from repro_torch.core.faults import STAT_KEYS
+    from repro_torch.utils.pytree import tree_map
+
+    dev = _card()
+    gpu = _quickstart_engine(dev, **knobs)
+    cpu = _quickstart_engine("cpu", init=tree_map(lambda a: a.cpu().clone(), gpu.params), **knobs)
+    if "sharing" in knobs:
+        import dataclasses
+
+        for e in (gpu, cpu):
+            e.sharing = e.steps.sharing = dataclasses.replace(e.sharing, selector="hist")
+    wrappers = {"gossip_mix_rows": gm.gossip_mix_rows, "abs_histogram_rows": tsp.abs_histogram_rows,
+                "quantize": tq.quantize, "dequantize": tq.dequantize,
+                "payload_mix_rows": sg.payload_mix_rows}
+    before = {k: f.launches for k, f in wrappers.items()}
+    gpu.run(log=False)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in wrappers.items()} == {
+        **{k: 0 for k in wrappers}, **launches}
+    cpu.run(log=False)
+    assert gpu.scheduler._fault_totals == cpu.scheduler._fault_totals
+    assert [{k: h.get(k) for k in STAT_KEYS} for h in gpu.history] == [
+        {k: h.get(k) for k in STAT_KEYS} for h in cpu.history]
+    assert gpu.bytes_sent == cpu.bytes_sent
+    torch.testing.assert_close(gpu.X.cpu(), cpu.X, rtol=0, atol=1e-4)
+    if "faults" in knobs:
+        t = gpu.scheduler._fault_totals
+        assert t["faults_injected"] == t["faults_detected"] + t["faults_survived"]
+        assert t["faults_detected"] == t["faults_recovered"] > 0
