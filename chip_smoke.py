@@ -38,9 +38,9 @@ Phases (any failure raises and the exit code is non-zero):
    noise form on per-node Threefry uniforms and dequantize, over the whole
    (1024, 579,594) state, with the uniform draw and the top-k sort timed;
 8c. dynamic, randomk and quant paths: the same engine over the dynamic
-   overlay (full sharing), with random-k sharing at a 10% budget (uniform
-   sampler, fp32 payloads) and with quantized sharing (stochastic
-   rounding), 8 rounds each, launch counts and bytes asserted, then one
+   overlay (full sharing, 8 rounds), with random-k sharing at a 10%
+   budget (uniform sampler, fp32 payloads) and with quantized sharing
+   (stochastic rounding), 4 rounds each, launch counts and bytes asserted, then one
    profiled round and the share step alone, with its random draw and (for
    random-k) its selection sort timed apart and the strided sampler's step;
 8d. faults path: full sharing under a FaultPlan (message loss 0.1, latency
@@ -52,18 +52,38 @@ Phases (any failure raises and the exit code is non-zero):
 8e. churn-topk path: the topk path at participation 0.9, with its launch
    counts, host-formula bytes, a profiled round that leaves the down
    nodes' last_shared rows bitwise unchanged, and the share step alone;
+8f. local, async and async-pairwise paths: the quickstart configuration
+   with stragglers (compute 0.05 s, a tenth of the nodes 10x slower) under
+   the neighbourhood-barrier clocks (8 rounds; the parameters equal a sync
+   engine's bitwise, the largest clock at most the sync barrier's) and
+   event-driven gossip (one local step per event: 16 neighbourhood
+   cohorts, one gather merge each; 8 pairwise cohorts at participation
+   0.9, no kernel), with the clocks, events and staleness printed;
+8g. scheduler kernels: the cohort merge over rows [cids | nbr] of a
+   100,000-row population and the int8 cold-row codec at a cohort's
+   shapes;
+8h. population and million: ``benchmarks/bench_population.py``'s stages
+   on the port, N=100,000 (flat selection, fp32 cold rows) and
+   N=1,000,000 (segment-minimum selection, int8 cold rows, the spread
+   clock), C=8192, the (16 -> 16 -> 2) MLP, 32 steps after a warm-up span,
+   launch counts per step, events/s, ``memory_model()`` against the
+   card's allocated bytes; then the reference's oracles on the card:
+   hier == flat bitwise (N=4096, C=256) and the cohort at C = N == the
+   dense path bitwise;
 9. reference: the full-sharing, fault-injected (sparse and dense W),
    secure (plain, and with spikes, corruption and a crash window), dynamic,
-   random-k (alone and under churn), Nesterov momentum and AdamW engines on
-   a small input, on the card and on the CPU from the same parameters, must
-   agree, fault counters included; for TopK (int8) and CHOCO-SGD with the
+   random-k (alone and under churn), Nesterov momentum and AdamW engines,
+   the local and async schedulers (neighbourhood, pairwise, under faults)
+   and the cohort path (flat, hier, hier with int8 cold rows) on a small
+   input, on the card and on the CPU from the same parameters, must agree,
+   fault counters, clocks, events, overflow and fallbacks included; for TopK (int8) and CHOCO-SGD with the
    histogram selector and for stochastic quantized sharing, alone and under
    churn, every share step of the card's run, replayed on the CPU from the
    same inputs and key, must agree;
 9b. examples: ``repro_torch.topologies_dynamic``,
    ``repro_torch.sparsification``, ``repro_torch.faults``,
-   ``repro_torch.churn`` and ``repro_torch.fl_vs_dl`` on the card at
-   ``--rounds 4``;
+   ``repro_torch.churn`` (also with ``--semantics local`` and ``async``)
+   and ``repro_torch.fl_vs_dl`` on the card at ``--rounds 4``;
 10. lm-kernels: the sliding-window attention and SSD chunk kernels against
    their twins at the two language-model paths' shapes and a few others,
    with ``scaled_dot_product_attention`` under the same band mask as the
@@ -130,7 +150,7 @@ PASS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms
 # further checks of a kernel kept under its JSON entry: the fine histogram
 # pass, the quantize noise form, and the callers of the sampled strategies
 FORMS = ("fine_pass", "noise_form", "dynamic_table", "randk_rows", "strided_rows", "prng_noise",
-         "full_width")
+         "full_width", "cohort_rows", "cold_rows")
 PROFILER_BOOKKEEPING = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
 PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_times' padding
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
@@ -910,9 +930,9 @@ def phase_secure_path():
 
 
 def main_path_engine(n, width, n_train, rounds, chunk, eval_every, device, init_params=None,
-                     optimizer=("sgd", 0.05, {}), **sharing):
+                     optimizer=("sgd", 0.05, {}), local_steps=2, **sharing):
     """The quickstart configuration (5-regular unless ``topology`` is
-    given, LAN model, 2 local steps of batch 8, GN-LeNet) with the sharing,
+    given, LAN model, ``local_steps`` of batch 8, GN-LeNet) with the sharing,
     overlay, churn and fault knobs of ``sharing`` (``faults`` a FaultPlan
     or its keyword dict); ``optimizer`` is ``make_optimizer``'s (name, lr,
     kwargs)."""
@@ -930,7 +950,7 @@ def main_path_engine(n, width, n_train, rounds, chunk, eval_every, device, init_
     parts = sharding_partition(ds.train_y, n, shards_per_node=2, seed=0)
     batcher = NodeBatcher(ds.train_x, ds.train_y, parts, batch_size=8, seed=0)
     dl = DLConfig(**{**dict(sharing="full", topology="regular"), **sharing}, n_nodes=n,
-                  degree=MAIN_DEG, local_steps=2, batch_size=8, rounds=rounds,
+                  degree=MAIN_DEG, local_steps=local_steps, batch_size=8, rounds=rounds,
                   chunk_rounds=chunk, eval_every=eval_every, network="lan")
     name, lr, okw = optimizer
     return RoundEngine(dl, lambda g: cnn_init(g, width=width), loss_fn, acc_fn,
@@ -1276,7 +1296,7 @@ def phase_randomk_path():
     K=5) and no other kernel; the strided sampler's share step timed
     apart (stride 11, a 1-byte phase)."""
     t = time.time()
-    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=4, chunk=4, eval_every=4, device=None,
                            sharing="randomk", budget=0.1)
     print(f"[randomk] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
           f"k={MAIN_K} wire={eng.wire_dtype} share_stage_bytes={eng.share_stage_bytes}",
@@ -1294,7 +1314,7 @@ def phase_quant_path():
     quantize launch (noise form, per-node uniforms), one dequantize and one
     gather merge, and no other kernel; bytes P + 4 per neighbour."""
     t = time.time()
-    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=4, chunk=4, eval_every=4, device=None,
                            sharing="quant")
     print(f"[quant] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params} "
           f"wire={eng.wire_dtype} share_stage_bytes={eng.share_stage_bytes}", flush=True)
@@ -1458,6 +1478,12 @@ class Recorder:
 # the step Lipschitz in the gradient (tests/test_torch_optim.py says the
 # same of its engine run)
 CHURN_FAULTS = dict(msg_loss=0.2, latency_spike_prob=0.2, corrupt_prob=0.2, seed=1)
+# the scheduler phases' straggler model (examples/churn.py's flags): base
+# compute 0.05 s, a tenth of the nodes 10x slower
+SCHED_CFG = dict(compute_time_s=0.05, straggler_factor=10.0, straggler_frac=0.1)
+# a cohort engine on a spread clock with a window (the hierarchy's regime)
+COHORT_CFG = dict(semantics="async", batch_keying="node", compute_time_s=0.05,
+                  compute_spread=3.0, async_slice_s=0.02)
 REFERENCE_CASES = (  # (label, engine knobs, "whole" run or share-step "replay")
     ("full", dict(sharing="full"), "whole"),
     ("faults-sparse", dict(participation=0.9, faults=dict(CHURN_FAULTS, crashes=((5, 0, 1),))),
@@ -1478,6 +1504,17 @@ REFERENCE_CASES = (  # (label, engine knobs, "whole" run or share-step "replay")
     ("quant", dict(sharing="quant"), "replay"),
     ("momentum", dict(optimizer=("momentum", 0.05, dict(nesterov=True))), "whole"),
     ("adamw", dict(optimizer=("adamw", 0.01, dict(eps=1e-3))), "whole"),
+    ("local", dict(semantics="local", **SCHED_CFG), "whole"),
+    ("async", dict(semantics="async", **SCHED_CFG), "whole"),
+    ("async-pairwise", dict(semantics="async", async_gossip="pairwise", participation=0.9,
+                            **SCHED_CFG), "whole"),
+    ("async-faults", dict(semantics="async", participation=0.9,
+                          faults=dict(CHURN_FAULTS, crashes=((5, 0, 1),)), **SCHED_CFG), "whole"),
+    ("cohort-flat", dict(COHORT_CFG, cohort_capacity=8), "whole"),
+    ("cohort-hier", dict(COHORT_CFG, cohort_capacity=8, selection="hier", segment_size=4),
+     "whole"),
+    ("cohort-hier-int8", dict(COHORT_CFG, cohort_capacity=8, selection="hier", segment_size=4,
+                              cold_dtype="int8"), "whole"),
 )
 
 
@@ -1507,9 +1544,13 @@ def phase_reference():
     for label, knobs, mode in REFERENCE_CASES:
         gpu = main_path_engine(16, 8, 2048, rounds=2, chunk=2, eval_every=1, device="cuda",
                                **knobs)
-        init = tree_map(lambda a: a.cpu().clone(), gpu.params)
+        init = tree_map(lambda a: a.cpu().clone(), gpu.scheduler.eval_params())
         cpu = main_path_engine(16, 8, 2048, rounds=2, chunk=2, eval_every=1, device="cpu",
                                init_params=init, **knobs)
+        if knobs.get("cold_dtype", "fp32") != "fp32":
+            # both start from the card's stored rows (a re-encode of the
+            # decoded rows could move a scale by an ulp)
+            cpu.scheduler._cold_params = to_cpu(gpu.scheduler._cold_params)
         full = mode == "whole"
         if not full:
             hist = {"selector": "hist"} if label.split("-")[-1] in ("topk", "choco") else {}
@@ -1518,7 +1559,7 @@ def phase_reference():
             cpu.sharing = cpu.steps.sharing = dataclasses.replace(cpu.sharing, **hist)
         gpu.run(log=False)
         cpu.run(log=False)
-        diff = float((gpu.X.cpu() - cpu.X).abs().max())
+        diff = float((flat_state(gpu).cpu() - flat_state(cpu)).abs().max())
         print(f"[reference] {label} {knobs}: N=16 width 8, 2 rounds: max |X_gpu - X_cpu| = "
               f"{diff}; bytes gpu={gpu.bytes_sent} cpu={cpu.bytes_sent}; "
               f"sim_time_s gpu={gpu.sim_time_s} cpu={cpu.sim_time_s}", flush=True)
@@ -1527,10 +1568,34 @@ def phase_reference():
         counters = [{k: e.history[-1].get(k) for k in STAT_KEYS} for e in (gpu, cpu)]
         if counters[0] != counters[1] or gpu.scheduler._fault_totals != cpu.scheduler._fault_totals:
             raise AssertionError(f"fault counters differ between card and CPU: {counters}")
+        if "semantics" in knobs:
+            # the clocks, events, fired counts, overflow and fallbacks
+            sm = [sched_metrics(e) for e in (gpu, cpu)]
+            print(f"[reference] {label}: {sm[0]}", flush=True)
+            ev = [e.scheduler._events.cpu() for e in (gpu, cpu)
+                  if hasattr(e.scheduler, "_events")]
+            if (sm[0] != sm[1] or gpu.sim_time_s != cpu.sim_time_s
+                    or (ev and not torch.equal(*ev))):
+                raise AssertionError(f"{label}: scheduler metrics differ between card and "
+                                     f"CPU: {sm}, sim_time_s {gpu.sim_time_s} {cpu.sim_time_s}")
         if "faults" in knobs:
             print(f"[reference] {label}: counters {counters[0]}", flush=True)
             if counters[0]["faults_injected"] == 0:
                 raise AssertionError(f"{label}: no fault was injected")
+        if full and knobs.get("cold_dtype") == "int8":
+            # each step re-encodes the fired rows: an fp32 rounding of the
+            # card's convolutions moves a value across an int8 rounding
+            # boundary now and then, a difference of one code (the row's
+            # scale), as TopK's threshold does (see the replay cases)
+            d = (flat_state(gpu).cpu() - flat_state(cpu)).abs()
+            step = code_steps(gpu)
+            over = int((d > 1e-4).sum())
+            print(f"[reference] {label}: {over} of {d.numel()} parameters apart by more than "
+                  f"1e-4, max |d| / (1e-4 + the row's code step) = "
+                  f"{float((d / (1e-4 + step)).max())}", flush=True)
+            if not bool((d <= 1e-4 + step).all()):
+                raise AssertionError(f"card and CPU disagree by more than one int8 code: {diff}")
+            continue
         if full:
             if not diff <= 1e-4:
                 raise AssertionError(f"card and CPU disagree: {diff}")
@@ -1553,6 +1618,9 @@ def phase_reference():
                                      f"down rows frozen: {frozen}")
         if len(rec.log) != 2:
             raise AssertionError(f"{len(rec.log)} share steps recorded, want 2")
+
+
+STRAGGLER_FLAGS = ["--straggler-factor", "10", "--straggler-frac", "0.1"]
 
 
 def phase_examples():
@@ -1578,6 +1646,8 @@ def phase_examples():
              ("gossip_mix_rows", "payload_mix_rows", "abs_histogram_rows")),
             ("faults", faults, ["--corrupt", "0.05", "--crash", "3:1:3"], merge),
             ("churn", churn, [], merge),
+            ("churn", churn, ["--semantics", "local"] + STRAGGLER_FLAGS, merge),
+            ("churn", churn, ["--semantics", "async"] + STRAGGLER_FLAGS, merge),
             ("fl_vs_dl", fl_vs_dl, [], merge)):
         reset_launches()
         t = time.time()
@@ -1590,7 +1660,7 @@ def phase_examples():
             raise AssertionError(f"{name}: non-finite accuracy or nothing sent: {out}")
         if any(launches[k] == 0 for k in must):
             raise AssertionError(f"{name}: a kernel of {must} was not launched: {launches}")
-        res[name] = out
+        res[" ".join([name] + argv[:2])] = out
     return res
 
 
@@ -1939,6 +2009,318 @@ def phase_lm_reference():
         raise AssertionError("mamba2-370m: card and CPU, or decode and forward, disagree")
 
 
+POP_N, POP_C, MILLION_N = 100_000, 8192, 1_000_000
+POP_SHAPE, POP_HIDDEN, POP_SPREAD = (4, 4, 1), 16, 15.0  # benchmarks/bench_population.py
+
+
+def flat_state(eng):
+    """The (N, P) fp32 parameters (decoded from compressed cold rows)."""
+    import torch
+    from repro_torch.utils.pytree import tree_leaves
+
+    if eng.X is not None:
+        return eng.X
+    n = eng.dl.n_nodes
+    return torch.cat([l.reshape(n, -1) for l in tree_leaves(eng.scheduler.eval_params())], 1)
+
+
+def to_cpu(tree):
+    """A stored cold tree (QuantRows leaves included) copied to the CPU."""
+    from repro_torch.core import compression as cc
+
+    return cc.cold_tree_map(lambda a: cc.QuantRows(a.q.cpu(), a.s.cpu())
+                            if isinstance(a, cc.QuantRows) else a.cpu(), tree)
+
+
+def code_steps(eng):
+    """(N, P) each parameter's int8 code step: its row's scale in its leaf."""
+    import torch
+    from repro_torch.utils.pytree import tree_leaves
+
+    n = eng.dl.n_nodes
+    return torch.cat([q.s.cpu()[:, None].expand(n, q.q[0].numel())
+                      for q in tree_leaves(eng.scheduler._cold_params)], 1)
+
+
+def sched_metrics(eng):
+    """The scheduler's clock and event metrics of the last record."""
+    h = eng.history[-1]
+    return {k: h[k] for k in h if k.startswith(("vclock", "events", "staleness", "cohort",
+                                                "selection"))}
+
+
+def phase_local_path():
+    """Neighbourhood-barrier clocks on the quickstart configuration with
+    stragglers: one gather-merge launch per round; the parameters equal a
+    synchronous engine's of the same configuration bitwise after the same
+    rounds, with the same bytes, and the largest clock is at most the sync
+    barrier's time."""
+    import torch
+
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+                           semantics="local", **SCHED_CFG)
+    print(f"[local] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params}",
+          flush=True)
+    _, launches = drive_path("local", eng, {"gossip_mix_rows": eng.dl.rounds})
+    sync = main_path_engine(MAIN_N, 32, 32768, rounds=8, chunk=4, eval_every=4, device=None,
+                            **SCHED_CFG)
+    sync.run(log=False)
+    same = bool(torch.equal(eng.X, sync.X))
+    print(f"[local] {sched_metrics(eng)} sim_time_s={eng.sim_time_s} (sync barrier "
+          f"{sync.sim_time_s}); X equal to the sync engine's bitwise: {same}; bytes "
+          f"{eng.bytes_sent} (sync {sync.bytes_sent})", flush=True)
+    if not same or eng.bytes_sent != sync.bytes_sent:
+        raise AssertionError("local semantics parted from the sync trajectory")
+    if not eng.sim_time_s <= sync.sim_time_s:
+        raise AssertionError("the local clock passed the sync barrier's time")
+    del sync
+    return launches, eng
+
+
+def phase_async_path(pairwise=False):
+    """Event-driven gossip on the quickstart model with stragglers, one
+    local step per event and a zero time slice (``examples/churn.py``'s
+    async setting; ``benchmarks/bench_engine.py`` part 5): neighbourhood
+    gossip makes one gather-merge launch per cohort (16 cohorts); pairwise
+    gossip (participation 0.9, 8 cohorts) averages with one partner by
+    elementwise torch ops and launches no kernel."""
+    path = "async-pairwise" if pairwise else "async"
+    knobs = dict(semantics="async", **SCHED_CFG)
+    if pairwise:
+        knobs.update(async_gossip="pairwise", participation=0.9)
+    cohorts = 8 if pairwise else 16
+    t = time.time()
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=cohorts, chunk=4, eval_every=cohorts // 2,
+                           device=None, local_steps=1, **knobs)
+    print(f"[{path}] engine built in {time.time() - t:.2f} s: N={MAIN_N} P={eng.n_params}",
+          flush=True)
+    hist, launches = drive_path(path, eng, {} if pairwise else {"gossip_mix_rows": cohorts})
+    first, last = hist[0], hist[-1]
+    dt = last["wall_s"] - first["wall_s"]
+    m = sched_metrics(eng)
+    print(f"[{path}] cohorts/s {(last['round'] - first['round']) / dt:.4f}; events/s "
+          f"{(last['events_total'] - first['events_total']) / dt:.2f}; fired per cohort "
+          f"{m['events_total'] / cohorts:.2f}; {m}; sim_time_s={eng.sim_time_s}", flush=True)
+    if not 0 < m["events_total"] <= MAIN_N * cohorts or m["events_min"] == m["events_max"]:
+        raise AssertionError(f"{path}: the stragglers fire as often as the rest: {m}")
+    return launches, eng
+
+
+def population_engine(n, c, *, device=None, selection="flat", cold="fp32", spread=0.0,
+                      slice_s=0.0, chunk=8, batch=8, seed=0):
+    """``benchmarks/bench_population.py``'s engine on the port: N nodes of a
+    (4·4·1 -> 16 -> 2) tanh MLP (P = 306), a 4-regular overlay, async
+    neighbourhood gossip with cohort capacity ``c`` (0: the dense path),
+    ``batch_keying="node"``, 1 ms events (``spread``: x U(1, 1+spread)),
+    no network model.  The weights are drawn in bulk from one seeded
+    generator on the card."""
+    import numpy as np
+    import torch
+    from repro_torch import DLConfig, RoundEngine
+    from repro_torch.core.engine import resolve_device
+    from repro_torch.data import NodeBatcher
+    from repro_torch.optim import make_optimizer
+
+    rng = np.random.default_rng(seed)
+    n_train = max(n, 256)
+    x = rng.normal(size=(n_train, *POP_SHAPE)).astype(np.float32)
+    y = rng.integers(0, 2, size=(n_train,)).astype(np.int32)
+    parts = np.array_split(np.arange(n_train), n)
+    dl = DLConfig(n_nodes=n, topology="regular", degree=4, sharing="full", semantics="async",
+                  async_gossip="neighborhood", async_slice_s=slice_s, chunk_rounds=chunk,
+                  eval_every=10_000, batch_size=batch, compute_time_s=1e-3, cohort_capacity=c,
+                  seed=seed, batch_keying="node", selection=selection, cold_dtype=cold,
+                  compute_spread=spread)
+    dev = resolve_device(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    feat = int(np.prod(POP_SHAPE))
+    init = {"w1": torch.randn((n, feat, POP_HIDDEN), generator=g, device=dev) / feat ** 0.5,
+            "b1": torch.zeros((n, POP_HIDDEN), device=dev),
+            "w2": torch.randn((n, POP_HIDDEN, 2), generator=g, device=dev) / POP_HIDDEN ** 0.5,
+            "b2": torch.zeros((n, 2), device=dev)}
+
+    def logits(p, xb):
+        h = torch.tanh(xb.reshape(xb.shape[0], -1) @ p["w1"] + p["b1"])
+        return h @ p["w2"] + p["b2"]
+
+    def loss(p, xb, yb):
+        return -torch.log_softmax(logits(p, xb), -1).gather(1, yb[:, None]).mean()
+
+    def acc(p, xb, yb):
+        return (logits(p, xb).argmax(-1) == yb).float().mean()
+
+    return RoundEngine(dl, None, loss, acc, make_optimizer("sgd", 0.05),
+                       NodeBatcher(x, y, parts, batch, seed=seed), init_params=init,
+                       device=device)
+
+
+def slice_for(n, c, fill=0.8):
+    """bench_population's cohort window for a steady occupancy of
+    ~fill·C under the continuous spread."""
+    import numpy as np
+
+    return fill * c / (n * np.log1p(POP_SPREAD) / (1e-3 * POP_SPREAD))
+
+
+def drive_cohort_path(path, eng, steps, want):
+    """``steps`` event steps in spans of the engine's chunk after one
+    warm-up span, every launch count set to 0 just before and read just
+    after and held to ``want`` (per step); events/s over the timed steps,
+    the scheduler's metrics, ``memory_model()`` and the card's allocated
+    bytes against the analytic total (hot + cold + the dataset); then one
+    more span under the profiler."""
+    import torch
+
+    sched, chunk = eng.scheduler, eng.chunk
+    sched.run_span(0, chunk)
+    torch.cuda.synchronize()
+    reset_launches()
+    fired0, t = sched._fired_total, time.perf_counter()
+    for s in range(chunk, chunk + steps, chunk):
+        sched.run_span(s, chunk)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = read_launches()
+    print(f"[{path}] launches={launches}", flush=True)
+    want = {**{k: 0 for k in launches}, **{k: v * steps for k, v in want.items()}}
+    if launches != want:
+        raise AssertionError(f"{path} launches {launches}, want {want}")
+    finite = all(bool(torch.isfinite(l).all()) for l in sched.eval_params().values())
+    if not finite:  # (the decoded copy is freed before the bytes are read)
+        raise AssertionError(f"{path}: non-finite parameters")
+    m = sched.extra_metrics()
+    mm = sched.memory_model()
+    data = sum(t.numel() * t.element_size()
+               for t in (eng._dev_x, eng._dev_y, eng._dev_lens, eng._dev_parts_pad))
+    analytic = mm["hot"]["total"] + mm["cold"]["total"] + data
+    live = torch.cuda.memory_allocated()
+    rate = (sched._fired_total - fired0) / dt
+    print(f"[{path}] N={eng.dl.n_nodes} C={sched._cohort_c} P={eng.n_params} "
+          f"selection={sched._selection} cold={sched._cold}: {steps} steps in {dt:.3f} s, "
+          f"{steps / dt:.2f} steps/s, events/s {rate:.1f}; {m}; memory_model hot "
+          f"{mm['hot']['total']} B cold {mm['cold']['total']} B (fp32 cold "
+          f"{mm['cold']['total_fp32']} B), dataset {data} B; memory_allocated {live} B vs "
+          f"analytic {analytic} B (ratio {live / analytic:.3f})", flush=True)
+    if m["events_total"] <= 0 or m["cohort_occupancy_mean"] <= 0:
+        raise AssertionError(f"{path}: no event fired")
+    profile_call(f"one {path} span of {chunk} steps",
+                 lambda: sched.run_span(chunk + steps, chunk))
+    return launches, {"events_per_s": rate, "metrics": m, "memory_model": mm,
+                      "memory_allocated": live, "analytic_bytes": analytic}
+
+
+def phase_population():
+    """bench_population's population stage on the port: N=100,000, C=8192,
+    homogeneous 1 ms events, a zero slice (a step fires up to C of the
+    tied nodes), fp32 cold rows, flat selection, 32 steps in spans of 8: one gather-merge
+    launch per step (the cohort merge over rows [cids | nbr])."""
+    t = time.time()
+    eng = population_engine(POP_N, POP_C)
+    print(f"[population] engine built in {time.time() - t:.2f} s", flush=True)
+    launches, _ = drive_cohort_path("population", eng, 32, {"gossip_mix_rows": 1})
+    return launches, eng
+
+
+def phase_million():
+    """bench_population's million stage on the port: N=1,000,000, C=8192,
+    segment-minimum selection, int8 cold rows, the continuous compute
+    spread and its slice: per step one gather-merge launch, one quantize
+    launch per parameter leaf at the scatter and two dequantize launches
+    per leaf at the gathers (the hot rows, and the merge's rows).  The
+    int8 cold bytes are at most 0.3 of fp32's, and the hierarchy prunes on
+    some step."""
+    t = time.time()
+    eng = population_engine(MILLION_N, POP_C, selection="hier", cold="int8",
+                            spread=POP_SPREAD, slice_s=slice_for(MILLION_N, POP_C))
+    print(f"[million] engine built in {time.time() - t:.2f} s", flush=True)
+    leaves = 4
+    launches, rec = drive_cohort_path("million", eng, 32, {
+        "gossip_mix_rows": 1, "quantize": leaves, "dequantize": 2 * leaves})
+    mm, m = rec["memory_model"], rec["metrics"]
+    ratio = mm["cold"]["total"] / mm["cold"]["total_fp32"]
+    print(f"[million] int8 cold bytes / fp32 cold bytes = {ratio:.4f}; selection fallbacks "
+          f"{m['selection_fallback_total']} of {32 + eng.chunk} steps", flush=True)
+    if ratio > 0.3 or m["selection_fallback_total"] >= 32 + eng.chunk:
+        raise AssertionError("million: cold bytes over 0.3 of fp32, or the hierarchy never pruned")
+    return launches, eng
+
+
+def phase_cohort_oracles():
+    """The reference's oracles on the card: hierarchical selection picks
+    the flat selection's cohorts bitwise (bench_population's
+    check_selection_oracle: N=4096, C=256, the spread clock, 24 steps), and
+    the cohort path at C = N equals the dense async path bitwise (N=1024,
+    8 steps)."""
+    import torch
+
+    sl = slice_for(4096, 256)
+    runs = {}
+    for sel in ("flat", "hier"):
+        e = population_engine(4096, 256, selection=sel, spread=POP_SPREAD, slice_s=sl, batch=4)
+        for s in range(0, 24, e.chunk):
+            e.scheduler.run_span(s, e.chunk)
+        runs[sel] = e
+    f, h = runs["flat"], runs["hier"]
+    same = bool(torch.equal(f.X, h.X)) and bool(torch.equal(f.scheduler._events,
+                                                          h.scheduler._events))
+    fb = h.scheduler.extra_metrics()["selection_fallback_total"]
+    print(f"[cohort-oracles] hier == flat bitwise over 24 steps at N=4096 C=256: {same} "
+          f"(fallbacks {fb}/24)", flush=True)
+    if not same or fb >= 24:
+        raise AssertionError("hier selection parted from flat, or never pruned")
+    runs = {}
+    for c in (0, 1024):
+        e = population_engine(1024, c, chunk=4)
+        for s in range(0, 8, 4):
+            e.scheduler.run_span(s, 4)
+        runs[c] = e
+    d, c = runs[0], runs[1024]
+    same = (bool(torch.equal(d.X, c.X)) and bool(torch.equal(d.scheduler._events,
+                                                              c.scheduler._events))
+            and d.bytes_sent == c.bytes_sent and d.sim_time_s == c.sim_time_s)
+    print(f"[cohort-oracles] cohort C=N == dense bitwise at N=1024 over 8 steps: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("the cohort path at C=N parted from the dense path")
+
+
+def phase_scheduler_kernels():
+    """The kernels at the new callers' shapes: the cohort merge (C=8192
+    rows [cids | nbr] of the N=100,000 population, K=5, P=306), and the
+    int8 cold-row codec at a cohort's largest leaf (8192 x 256) and at the
+    merge's decode of C·(1+D) rows."""
+    import torch
+    from repro_torch.core.topology import SparseTopology
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as q
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    p, k = 306, 5
+    X = torch.randn((POP_N, p), generator=gen, device=dev)
+    topo = SparseTopology.regular_circulant(POP_N, 4).to(dev)
+    cids = torch.sort(torch.randperm(POP_N, generator=gen, device=dev)[:POP_C]).values
+    rows = torch.cat([cids[:, None], topo.nbr[cids].long()], 1).to(torch.int32).contiguous()
+    w = torch.cat([topo.w_self[cids, None], topo.w[cids]], 1).contiguous()
+    out = {"cohort_rows": check(
+        f"gossip_mix_rows fp32 cohort merge C={POP_C} K={k} P={p} over N={POP_N} rows",
+        lambda: gm.gossip_mix_rows(X, rows, w), lambda: gm.gossip_mix_rows_ref(X, rows, w),
+        None, merge_bound_ms(POP_C, k, p, 4, POP_C * k), tol=1e-5)}
+    leaf = X[:POP_C, :256].contiguous()
+    out["cold_rows"] = check(f"quantize cold rows {POP_C} x 256 (a cohort's w1 leaf)",
+                             lambda: q.quantize(leaf), lambda: q.quantize_ref(leaf), None,
+                             codec_bound(POP_C, 256, False))
+    codes, scale = q.quantize(X[:POP_C * k, :256].contiguous())
+    out["cold_decode"] = check(
+        f"dequantize cold rows {POP_C * k} x 256 (the merge's decode)",
+        lambda: q.dequantize(codes, scale), lambda: q.dequantize_ref(codes, scale), None,
+        codec_bound(POP_C * k, 256, False))
+    del X, codes, scale
+    torch.cuda.empty_cache()
+    return out
+
+
 def release():
     """Free a dropped engine before the next path: an engine and its
     scheduler refer to each other, so only the collector frees them, and a
@@ -2020,6 +2402,19 @@ def main():
     time_share_step(eng, "churn-topk")
     del eng
     release()
+    # the local and async schedulers, and the population-scale cohort path
+    for path, run in (("local", phase_local_path), ("async", phase_async_path),
+                      ("async-pairwise", lambda: phase_async_path(pairwise=True))):
+        by_path[path], eng = run()
+        del eng
+        release()
+    sched_kernels = phase_scheduler_kernels()
+    for path, run in (("population", phase_population), ("million", phase_million)):
+        by_path[path], eng = run()
+        del eng
+        release()
+    phase_cohort_oracles()
+    release()
     phase_reference()
     release()
     phase_examples()
@@ -2040,6 +2435,9 @@ def main():
     checks["payload_mix_rows"]["strided_rows"] = sampled["strided_rows"]
     checks["quantize"]["prng_noise"] = sampled["prng_noise"]
     checks["dequantize"]["full_width"] = sampled["full_width"]
+    checks["gossip_mix_rows"]["cohort_rows"] = sched_kernels["cohort_rows"]
+    checks["quantize"]["cold_rows"] = sched_kernels["cold_rows"]
+    checks["dequantize"]["cold_rows"] = sched_kernels["cold_decode"]
     launches["swa_attention_gqa"] = serve_launches["swa_attention_gqa"]
     launches["ssd_chunk"] = forward_launches["ssd_chunk"]
     launches.update({k: v for k, v in topk_launches.items()

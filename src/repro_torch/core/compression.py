@@ -1,7 +1,8 @@
 """Compression module (paper §2.2): the per-row int8 codec carried in
 gossip messages, through the hand-written codec kernels
-(``kernels/quantize.py``).  Codes and scales are bitwise the JAX package's
-``core/compression.py`` under ``jit``.
+(``kernels/quantize.py``), and the cold population-row codec of the async
+cohort path (``DLConfig.cold_dtype``).  Codes and scales are bitwise the
+JAX package's ``core/compression.py`` under ``jit``.
 
 Stochastic rounding (``key`` given) takes its noise from
 ``repro_torch.prng.uniform``, bitwise ``jax.random.uniform``, into the
@@ -43,3 +44,157 @@ def dequantize_int8(codes, scale):
     flat = dequantize(codes.reshape(-1, codes.shape[-1]).contiguous(),
                       scale.reshape(-1, 1).contiguous())
     return flat.reshape(codes.shape)
+
+
+# ---------------------------------------------------------------------------
+# cold population-row codec (AsyncScheduler, ``DLConfig.cold_dtype``)
+# ---------------------------------------------------------------------------
+# The cohort path touches its cold (N, ...) population state only by row
+# gathers and scatters, so it can live compressed: ``encode_cold`` maps a
+# node-stacked tree to its stored form, ``decode_cold`` a stored tree (full
+# or row-gathered) back to fp32.  'bf16' truncates each float leaf;
+# 'int8' quantizes each leaf per row (``QuantRows``: codes in the leaf's
+# shape and one (N,) fp32 scale), through the quantize and dequantize
+# kernels.  Non-float leaves (AdamW's step count) pass through.
+
+COLD_DTYPES = ("fp32", "bf16", "int8")
+
+
+class QuantRows:
+    """An int8-quantized node-stacked leaf: ``q`` int8 codes in the leaf's
+    shape and ``s`` (N,) fp32 per-row scales."""
+
+    __slots__ = ("q", "s")
+
+    def __init__(self, q, s):
+        self.q = q
+        self.s = s
+
+    def take(self, rows):
+        """The rows ``rows`` of both fields."""
+        return QuantRows(self.q[rows], self.s[rows])
+
+    def put_(self, rows, sub: "QuantRows"):
+        """Write ``sub``'s rows at the ids ``rows`` (unique), in place."""
+        self.q[rows] = sub.q
+        self.s[rows] = sub.s
+        return self
+
+
+def cold_tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts, tuples and lists, with
+    :class:`QuantRows` as a leaf."""
+    if isinstance(tree, dict):
+        return {k: cold_tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(cold_tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in _tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [l for t in tree for l in _tree_leaves(t)]
+    return [tree]
+
+
+def quantize_rows(a) -> QuantRows:
+    """(N, ...) float leaf -> :class:`QuantRows`, one quantize launch over
+    its (N, prod(...)) rows (a view where the leaf's rows have unit
+    column stride)."""
+    flat = a.reshape(a.shape[0], -1).to(torch.float32)
+    if flat.stride(1) != 1:
+        flat = flat.contiguous()
+    q, s = quantize(flat)
+    return QuantRows(q.reshape(a.shape), s[:, 0])
+
+
+def dequantize_rows(enc: QuantRows, dtype=torch.float32):
+    """:class:`QuantRows` -> the float leaf, one dequantize launch."""
+    q = enc.q
+    flat = dequantize(q.reshape(q.shape[0], -1), enc.s.reshape(-1, 1).contiguous())
+    return flat.reshape(q.shape).to(dtype)
+
+
+def encode_cold(tree, mode: str):
+    """Node-stacked tree -> its ``cold_dtype`` stored form ('fp32' is the
+    identity).  Float leaves only; everything else passes through."""
+    if mode == "fp32":
+        return tree
+    if mode not in COLD_DTYPES:
+        raise ValueError(f"unknown cold_dtype {mode!r} ({'|'.join(COLD_DTYPES)})")
+
+    def enc(a):
+        if not a.is_floating_point():
+            return a
+        return a.to(torch.bfloat16) if mode == "bf16" else quantize_rows(a)
+
+    return cold_tree_map(enc, tree)
+
+
+def decode_cold(tree, mode: str):
+    """Stored form (full tree or a row-gathered one) -> fp32 tree."""
+    if mode == "fp32":
+        return tree
+
+    def dec(x):
+        if isinstance(x, QuantRows):
+            return dequantize_rows(x)
+        return x.to(torch.float32) if x.dtype == torch.bfloat16 else x
+
+    return cold_tree_map(dec, tree)
+
+
+def take_rows(tree, rows):
+    """The rows ``rows`` of every leaf of a stored tree."""
+    return cold_tree_map(lambda a: a.take(rows) if isinstance(a, QuantRows) else a[rows], tree)
+
+
+def put_rows_(tree, rows, sub):
+    """Write ``sub``'s rows into the stored tree at the unique ids
+    ``rows``, in place."""
+    def put(a, b):
+        if isinstance(a, QuantRows):
+            a.put_(rows, b)
+        else:
+            a[rows] = b
+        return a
+
+    return cold_tree_map(put, tree, sub)
+
+
+def where_rows(mask, new, old):
+    """Per-row select between two stored trees: ``new``'s rows where
+    ``mask`` (N,) > 0, else ``old``'s (a QuantRows leaf selects its codes
+    and scales together)."""
+    def f(nw, od):
+        if isinstance(nw, QuantRows):
+            m = mask.reshape((-1,) + (1,) * (nw.q.dim() - 1)) > 0
+            return QuantRows(torch.where(m, nw.q, od.q), torch.where(mask > 0, nw.s, od.s))
+        return torch.where(mask.reshape((-1,) + (1,) * (nw.dim() - 1)) > 0, nw, od)
+
+    return cold_tree_map(f, new, old)
+
+
+def cold_leaf_bytes(leaf) -> int:
+    """Stored bytes of one cold leaf (codes and scales for QuantRows)."""
+    if isinstance(leaf, QuantRows):
+        return int(leaf.q.numel() * leaf.q.element_size() + leaf.s.numel() * 4)
+    return int(leaf.numel() * leaf.element_size())
+
+
+def cold_leaf_fp32_bytes(leaf) -> int:
+    """fp32-equivalent bytes of one cold leaf (the uncompressed baseline)."""
+    if isinstance(leaf, QuantRows):
+        return int(leaf.q.numel() * 4)
+    if leaf.is_floating_point():
+        return int(leaf.numel() * 4)
+    return int(leaf.numel() * leaf.element_size())
+
+
+def cold_tree_bytes(tree):
+    """(stored, fp32-equivalent) byte totals of a cold tree."""
+    leaves = _tree_leaves(tree)
+    return (sum(cold_leaf_bytes(l) for l in leaves),
+            sum(cold_leaf_fp32_bytes(l) for l in leaves))

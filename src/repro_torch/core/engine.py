@@ -9,9 +9,10 @@ sharing strategy — for a sparse overlay, one launch of the fused
 gather-merge kernel (``kernels/gossip_mix.py``).  The dataset lives on
 the device and each round's batches are gathered there by index.
 
-The port covers the synchronous scheduler on one device over static
-overlays and the dynamic one (a new random d-regular graph every round,
-``PeerSampler``); full and quantized full sharing, the sparsified
+The port covers the three schedulers (synchronous, neighbourhood-barrier
+clocks, event-driven async gossip with its population-scale cohort path)
+on one device over static overlays and the dynamic one (a new random
+d-regular graph every round, ``PeerSampler``); full and quantized full sharing, the sparsified
 strategies (random-k with either sampler, TopK, CHOCO-SGD with either
 compressor; payload wire on or off, int8 payload codec) and secure
 aggregation (with the seed-recovery pass under churn); churn (per-round
@@ -20,8 +21,8 @@ fault injection (``core/faults.py`` ``FaultPlan``: message loss, crash
 windows, latency spikes, payload corruption with the rollback guard);
 per-node learning-rate multipliers; checkpoints of the engine state
 (``save_state``/``load_state``, in the JAX package's file format).
-``DLConfig.validate()`` raises ``NotImplementedError`` for every knob
-outside it.
+``DLConfig.validate()`` raises ``NotImplementedError`` for the two knobs
+outside it, ``shard_devices > 0`` and ``backend="processes"``.
 
 Device and numerics: the engine runs on the card (``device=None`` means
 ``"cuda"``) and raises if there is none; pass ``device="cpu"`` to run on
@@ -159,20 +160,14 @@ class DLConfig:
             ):
                 bad("randk_sampler applies to sharing='randomk' only")
 
-        if self.semantics in ("local", "async"):
-            todo(f"semantics={self.semantics!r} (ROADMAP Queue 1 item 5)")
         if not sharing_lib.is_full_sharing(self.sharing):
             sharing_lib.make_sharing(self.sharing)  # an unknown name raises
         if self.shard_devices > 0:
             todo("node sharding (shard_devices > 0; ROADMAP Queue 1 item 6)")
-        if self.cohort_capacity > 0:
-            todo("the async cohort path (cohort_capacity > 0; ROADMAP Queue 1 item 5)")
         if self.backend == "processes":
-            todo("backend='processes'")
-        if self.batch_keying == "node":
-            todo("batch_keying='node'")
+            todo("backend='processes' (ROADMAP Queue 1 item 7)")
 
-        if self.semantics != "sync":
+        if self.semantics not in ("sync", "local", "async"):
             bad(f"unknown semantics {self.semantics!r} (sync|local|async)")
         if self.backend != "simulated":
             bad(f"unknown backend {self.backend!r} (simulated|processes)")
@@ -220,27 +215,67 @@ class DLConfig:
             if self.chunk_rounds <= 0:
                 bad("faults need chunk_rounds > 0 (the JAX package runs "
                     "them on its scanned chunk path only)")
+            if self.cohort_capacity > 0:
+                bad("faults do not compose with cohort_capacity (the cohort "
+                    "gather/scatter step has no fault hooks); use the dense "
+                    "async path")
             if self.secure and self.faults.msg_loss > 0:
                 bad("secure=True with FaultPlan.msg_loss > 0 is not "
                     "modeled: per-edge loss would need per-edge mask "
                     "recovery (secure_recovery covers node-level churn "
                     "and crashes; latency spikes and corruption compose)")
-        if self.batch_keying != "stream":
+        # execution semantics, as the JAX package checks them
+        if self.semantics != "sync" and self.chunk_rounds <= 0:
+            bad(f"semantics={self.semantics!r} runs on the chunked path only "
+                "(chunk_rounds > 0)")
+        if self.semantics == "async":
+            if self.secure:
+                bad("semantics='async' rejects secure=True (pairwise masks "
+                    "assume all co-neighbors mix in the same round)")
+            if not sharing_lib.is_full_sharing(self.sharing):
+                bad("semantics='async' models one-sided stale reads for "
+                    f"sharing='full' only (got {self.sharing!r})")
+            if self.async_gossip == "pairwise" and (
+                self.mixing == "dense" or self.topology in ("fully", "star")
+            ):
+                bad("async_gossip='pairwise' samples partners from sparse "
+                    "neighbor tables; use async_gossip='neighborhood' for "
+                    "dense mixing / fully|star topologies")
+        # population-scale cohort activation
+        if self.batch_keying not in ("stream", "node"):
             bad(f"unknown batch_keying {self.batch_keying!r} (stream|node)")
+        if self.batch_keying == "node" and self.chunk_rounds <= 0:
+            bad("batch_keying='node' derives indices on the chunked path "
+                "(chunk_rounds > 0)")
         if self.cohort_capacity < 0:
             bad(f"cohort_capacity must be >= 0, got {self.cohort_capacity}")
+        if self.cohort_capacity > 0:
+            if self.semantics != "async":
+                bad("cohort_capacity is the async cohort gather/scatter "
+                    f"path; set semantics='async' (got {self.semantics!r})")
+            if self.cohort_capacity > self.n_nodes:
+                bad(f"cohort_capacity={self.cohort_capacity} exceeds "
+                    f"n_nodes={self.n_nodes}")
+            if self.mixing == "dense" or self.topology in ("fully", "star"):
+                bad("cohort_capacity gathers neighbor rows from sparse "
+                    "(N, D) tables; dense mixing / fully|star topologies "
+                    "have no bounded neighbor set to gather")
+            if self.batch_keying != "node":
+                bad("cohort_capacity requires batch_keying='node' (host "
+                    "staging of (R, L, N, B) indices is O(N·B) per step)")
         if self.selection not in ("auto", "flat", "hier"):
             bad(f"unknown selection {self.selection!r} (auto|flat|hier)")
         if self.segment_size < 0:
             bad(f"segment_size must be >= 0, got {self.segment_size}")
         if self.cold_dtype not in ("fp32", "bf16", "int8"):
             bad(f"unknown cold_dtype {self.cold_dtype!r} (fp32|bf16|int8)")
-        if self.selection == "hier" or self.segment_size > 0:
-            bad("selection='hier'/segment_size tune the cohort selection "
-                "layer; set cohort_capacity > 0")
-        if self.cold_dtype != "fp32":
-            bad("cold_dtype compresses the cohort path's cold population "
-                "state; set cohort_capacity > 0")
+        if self.cohort_capacity == 0:
+            if self.selection == "hier" or self.segment_size > 0:
+                bad("selection='hier'/segment_size tune the cohort selection "
+                    "layer; set cohort_capacity > 0")
+            if self.cold_dtype != "fp32":
+                bad("cold_dtype compresses the cohort path's cold population "
+                    "state; set cohort_capacity > 0")
         return self
 
 
@@ -380,6 +415,14 @@ class RoundEngine:
         self.wire_dtype = self.sharing.wire_dtype(self.X.dtype)
         self.share_stage_bytes = int(self.sharing.stage_bytes_per_round(n, self.n_params))
         self.mix_mode = self._resolve_mix_mode()
+        if self.mix_mode != "sparse":
+            if dl.semantics == "async" and dl.async_gossip == "pairwise":
+                raise ValueError("async_gossip='pairwise' needs sparse neighbor tables; this "
+                                 "topology resolved to dense mixing — use "
+                                 "async_gossip='neighborhood'")
+            if dl.cohort_capacity > 0:
+                raise ValueError("cohort_capacity gathers neighbor rows from sparse (N, D) "
+                                 "tables; this topology resolved to dense mixing")
         # peak host->device bytes of the mixing topology: staged once for a
         # static overlay, per span for the dynamic one (scheduler)
         self.topo_stage_bytes_peak = 0
@@ -416,6 +459,15 @@ class RoundEngine:
         self._compute_node = torch.as_tensor(compute_node, device=dev)
         self._dev_x = torch.as_tensor(batcher.x, device=dev)
         self._dev_y = torch.as_tensor(batcher.y, device=dev).long()
+        base_key = prng.key(dl.seed + 17)
+        if dl.batch_keying == "node":
+            # per-(round, node) keyed sampling from device partition tables;
+            # the batch key is folded off the engine key, apart from the
+            # sharing and gossip draws
+            self._dev_lens, self._dev_parts_pad = batcher.device_tables(dev)
+            self._batch_key = prng.fold_in(base_key, 0x0BA7)
+        else:
+            self._dev_lens = self._dev_parts_pad = self._batch_key = None
         self.chunk = max(dl.chunk_rounds, 1)
         if self.sampler is not None and self.mix_mode == "dense":
             self.chunk = max(1, min(self.chunk, _W_STACK_BYTES_CAP // (4 * n * n)))
@@ -429,7 +481,7 @@ class RoundEngine:
             parallel_sends=dl.parallel_sends,
             lat=self._lat,
             goodput=self._goodput,
-            base_key=prng.key(dl.seed + 17),
+            base_key=base_key,
             live_edges=live_edges,
             lr_scales=self.lr_scales,
             faults=dl.faults,
@@ -464,7 +516,10 @@ class RoundEngine:
 
     @property
     def params(self) -> Dict:
-        """Node-stacked parameter tree: views of the flat state X."""
+        """Node-stacked parameter tree: views of the flat state X (decoded
+        from the async cohort path's compressed rows, where X is None)."""
+        if self.X is None:
+            return self.scheduler.eval_params()
         return tree_unvector(self.X, self.template)
 
     def _resolve_mix_mode(self) -> str:
@@ -485,7 +540,7 @@ class RoundEngine:
         n = self.dl.n_nodes
         group = max(1, _EVAL_ELEMS // max(tx.numel(), 1))
         node_acc = vmap(lambda p: self.acc_fn(p, tx, ty))
-        params = self.params
+        params = self.scheduler.eval_params()
         accs = [
             node_acc(tree_map(lambda a: a[i:i + group], params))
             for i in range(0, n, group)
@@ -514,8 +569,9 @@ class RoundEngine:
             )
 
     def run(self, rounds: Optional[int] = None, log: bool = True) -> List[Dict]:
-        """Execute ``rounds`` synchronous rounds with an eval every
-        ``eval_every`` rounds and after the last."""
+        """Execute ``rounds`` scheduler steps (rounds, or event cohorts
+        under ``semantics="async"``) with an eval every ``eval_every``
+        steps and after the last."""
         dl = self.dl
         rounds = rounds if rounds is not None else dl.rounds
         tx, ty = self.batcher.test_batch()
@@ -547,6 +603,7 @@ class RoundEngine:
         format, the JAX package's).  Returns the checkpoint file."""
         from repro_torch.checkpoint import save_checkpoint
 
+        self._check_flat_state()
         step = self.rounds_done if step is None else step
         return save_checkpoint(path, step, params=self.params, opt_state=self.opt_state,
                                share_state=self.share_state)
@@ -557,6 +614,7 @@ class RoundEngine:
         round.  Returns the step."""
         from repro_torch.checkpoint import load_checkpoint, restore_tree
 
+        self._check_flat_state()
         step, trees = load_checkpoint(path, step)
         params = restore_tree(self.params, trees.get("params"))
         n = self.dl.n_nodes
@@ -565,6 +623,11 @@ class RoundEngine:
         self.share_state = restore_tree(self.share_state, trees.get("share_state"))
         self._start_round = self.rounds_done = int(step)
         return int(step)
+
+    def _check_flat_state(self):
+        if self.X is None:
+            raise NotImplementedError(
+                "checkpoints of bf16/int8 cold rows (cold_dtype != 'fp32') are not ported")
 
     def _dump_results(self):
         """Per-run JSON results: the config and the history."""

@@ -17,6 +17,8 @@ weights.
 * :func:`mix_payload_strided` — the same for the strided random-k
   sampler's payloads (one phase per node), through the payload-merge
   kernel on the rebuilt index rows.
+* :func:`gossip_pair_avg` — one cohort of pairwise asynchronous gossip
+  (AD-PSGD): each fired node averages with one sampled neighbour.
 
 Summation order: the kernel adds the self slot first and then the
 neighbour slots in order; the JAX ``apply_W`` adds ``w_self * x`` after the
@@ -26,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.topology import SparseTopology
+from repro_torch.core.topology import SparseTopology, sample_neighbor_slots
 from repro_torch.kernels.gossip_mix import gossip_mix_rows
 from repro_torch.kernels.scatter_gossip import payload_mix_rows
 from repro_torch.utils.pytree import tree_map
@@ -132,3 +134,26 @@ def mix_payload_masked(W, idx, val, X):
     MX = _scatter_rows(idx, val, Xf.shape)
     M = _scatter_rows(idx, torch.ones_like(val, dtype=torch.float32), Xf.shape)
     return Xf + apply_W(W, MX) - Xf * apply_W(W, M)
+
+
+def gossip_pair_avg(topo: SparseTopology, X, key, *, fire=None, act=None, rows=None):
+    """One cohort of pairwise asynchronous gossip (AD-PSGD, one-sided
+    read): each row draws one valid neighbour slot
+    (``topology.sample_neighbor_slots``) and, where it fired (``fire``
+    (N,) {0,1}, None for all) and its partner is up (``act`` (N,) {0,1},
+    None for all), becomes ``0.5 * (x_i + x_partner)``; other rows stay.
+
+    Returns ``(X', partner, ok)``: the (N,) global partner ids (a row's
+    own id where no exchange happened) and the (N,) fp32 {0,1} mask of
+    the exchanges that happened."""
+    Xf = X.to(torch.float32)
+    slot = sample_neighbor_slots(key, topo, rows=rows)
+    partner = topo.nbr.gather(1, slot[:, None])[:, 0].to(torch.int64)
+    ok = torch.ones(partner.shape[0], dtype=torch.float32, device=X.device)
+    if fire is not None:
+        ok = ok * fire
+    if act is not None:
+        ok = ok * act[partner]
+    X2 = torch.where(ok[:, None] > 0, 0.5 * (Xf + Xf[partner]), Xf)
+    partner = torch.where(ok > 0, partner, torch.arange(partner.shape[0], device=X.device))
+    return X2.to(X.dtype), partner, ok

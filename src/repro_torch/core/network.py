@@ -19,6 +19,10 @@ import torch
 from repro_torch.core.topology import Graph
 
 
+# edges per row up to which node_round_times sums them one by one
+_SUM_IN_ORDER = 64
+
+
 def node_round_times(A, lat, goodput, per_edge_bytes, compute_time,
                      parallel_sends: bool = False):
     """Per-node round time, on numpy arrays or tensors alike:
@@ -34,13 +38,32 @@ def node_round_times(A, lat, goodput, per_edge_bytes, compute_time,
     """
     t_edge = lat + per_edge_bytes * 8.0 / goodput
     masked = A * t_edge
-    if not parallel_sends:
+    if not parallel_sends and isinstance(masked, torch.Tensor) and masked.shape[1] <= _SUM_IN_ORDER:
+        # a neighbour table's few slots summed in slot order, so the card
+        # adds them as the CPU does (a reduction kernel may pair them up)
+        comm = masked[:, 0]
+        for k in range(1, masked.shape[1]):
+            comm = comm + masked[:, k]
+    elif not parallel_sends:
         comm = masked.sum(1)
     elif isinstance(masked, torch.Tensor):
         comm = masked.amax(1)
     else:
         comm = masked.max(axis=1)
     return compute_time + comm
+
+
+def gathered_round_times(lat, goodput, rows, nbr, A, per_edge_bytes, compute_time,
+                         parallel_sends: bool = False):
+    """:func:`node_round_times` for a gathered row subset (the cohort
+    path): ``rows`` (C,) global ids, ``nbr`` their (C, D) global neighbour
+    ids; the link entries are gathered as ``lat[rows[:, None], nbr]``,
+    elementwise the dense neighbour gather at those rows, so the result
+    is the (C,)-row slice of the dense formula.  A: (C, D) {0,1} live
+    edges; compute_time: (C,) seconds."""
+    r = rows[:, None]
+    return node_round_times(A, lat[r, nbr], goodput[r, nbr], per_edge_bytes, compute_time,
+                            parallel_sends)
 
 
 def straggler_compute_times(

@@ -176,6 +176,19 @@ def participation_reweight_sparse(topo: SparseTopology, active):
     return topo.reweighted(w, 1.0 - w.sum(-1))
 
 
+def participation_reweight_rows(topo_rows: SparseTopology, active, rows):
+    """Row-subset :func:`participation_reweight_sparse`: churn-reweight a
+    gathered (C, D) cohort view (``topology.gather_rows``, ``nbr`` global
+    ids) against the full (N,) ``active`` mask.  Each row's arithmetic is
+    the dense reweight's, so the result is its (C,)-row slice.  The
+    degree comes from :func:`participation_deg_eff` on the host, which
+    counts every live edge, not only the cohort's."""
+    m = active.to(torch.float32)
+    pair = m[rows][:, None] * m[topo_rows.nbr.long()]
+    w = topo_rows.w.to(torch.float32) * pair
+    return SparseTopology(topo_rows.nbr, w, 1.0 - w.sum(-1))
+
+
 def live_edge_mask(nbr, live, active=None) -> np.ndarray:
     """(N, E) bool host mask of the edges a churn round sends on: the
     static edges ``live`` (N, E) whose endpoints are both up in

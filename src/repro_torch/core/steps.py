@@ -25,7 +25,7 @@ from torch.func import grad, vmap
 
 from repro_torch import prng
 from repro_torch.core import faults as faults_lib
-from repro_torch.core.network import node_round_times
+from repro_torch.core.network import gathered_round_times, node_round_times
 from repro_torch.core.secure import SEED_SHARE_BYTES
 from repro_torch.core.sharing import (
     edge_reweight,
@@ -61,6 +61,22 @@ def node_where_(mask, new, old):
         return n
 
     return tree_map(f, new, old)
+
+
+def per_edge_bytes(nbytes: float, deg_eff, device) -> torch.Tensor:
+    """The bytes of one message, fp32 on ``device``, as the reference
+    divides a round's bytes by its degree: a churn round's degree (an
+    ``np.float32`` from the host) by an fp32 division, the static mean
+    degree (a Python float, a constant to XLA) by a multiplication with
+    its fp32 reciprocal.  Both operands are device tensors, so the card
+    rounds as the CPU does."""
+    nb = torch.full((), nbytes, dtype=torch.float32, device=device)
+    if not deg_eff > 0:
+        return torch.zeros_like(nb)
+    d = max(float(deg_eff), 1e-9)
+    if isinstance(deg_eff, np.floating):
+        return nb / torch.tensor(d, dtype=torch.float32, device=device)
+    return nb * torch.tensor(1.0 / d, dtype=torch.float32, device=device)
 
 
 class RoundFaults(NamedTuple):
@@ -104,17 +120,22 @@ class RoundSteps:
     faults: Optional[faults_lib.FaultPlan] = None
     fault_key: Optional[prng.Key] = None
 
-    def local_train(self, params, opt_state, bx, by, active=None):
+    def local_train(self, params, opt_state, bx, by, active=None, rows=None):
         """``bx.shape[0]`` SGD steps on every node at once: per-node
         gradients by ``vmap(grad(loss_fn))``.  ``params`` are views of the
         flat state and are updated in place.  A down node (active 0) takes
-        a zero update and keeps its optimizer state."""
+        a zero update and keeps its optimizer state.  ``rows`` (global node
+        ids) marks a gathered row subset, the cohort path's hot set, whose
+        per-node learning rates are those rows'."""
         node_grad = vmap(grad(self.loss_fn))
+        lrs = self.lr_scales
+        if lrs is not None and rows is not None:
+            lrs = lrs[rows]
         for s in range(bx.shape[0]):
             grads = node_grad(params, bx[s], by[s])
             updates, new_opt = self.opt.update(grads, opt_state, params)
-            if self.lr_scales is not None:
-                updates = node_scale(updates, self.lr_scales)
+            if lrs is not None:
+                updates = node_scale(updates, lrs)
             if active is not None:
                 updates = node_scale(updates, active)
                 new_opt = node_where(active, new_opt, opt_state)
@@ -122,15 +143,17 @@ class RoundSteps:
             opt_state = new_opt
         return params, opt_state
 
-    def round_time(self, Wm, nbytes: float, deg_eff: float, active=None, lat_mult=None):
-        """Simulated synchronous round wall-clock, fp32 on the device: the
-        max over nodes of ``network.node_round_times`` (a down node's time
-        counts 0).  For a SparseTopology the per-edge latency and goodput
-        are gathered through the neighbor table.  ``lat_mult`` multiplies
-        each edge's latency (latency spikes), in ``Wm``'s edge layout."""
+    def round_time(self, Wm, nbytes: float, deg_eff, active=None, lat_mult=None,
+                   reduce: str = "max"):
+        """Simulated round wall-clock, fp32 on the device, from the
+        per-node ``network.node_round_times`` (a down node's time counts
+        0): their max (``reduce="max"``, the synchronous barrier) or the
+        (N,) vector itself (``"none"``, for the local and async clocks).
+        For a SparseTopology the per-edge latency and goodput are gathered
+        through the neighbor table.  ``lat_mult`` multiplies each edge's
+        latency (latency spikes), in ``Wm``'s edge layout."""
         dev = self.lat.device
-        nb = torch.full((), nbytes, dtype=torch.float32, device=dev)
-        per_edge = nb / max(deg_eff, 1e-9) if deg_eff > 0 else torch.zeros_like(nb)
+        per_edge = per_edge_bytes(nbytes, deg_eff, dev)
         if isinstance(Wm, SparseTopology):
             rows = torch.arange(Wm.nbr.shape[0], device=dev)[:, None]
             nbr = Wm.nbr.long()
@@ -148,7 +171,20 @@ class RoundSteps:
                                   self.parallel_sends)
         if active is not None:
             node_t = active * node_t
-        return node_t.max()
+        return node_t if reduce == "none" else node_t.max()
+
+    def cohort_comm_time(self, rows, nbr, live, nbytes: float, deg_eff):
+        """Per-event comm seconds of a gathered cohort: the (C,)-row slice
+        of ``round_time(..., reduce="none") - compute_node`` that the dense
+        async path computes over all N rows, expression for expression
+        (the per-edge bytes, the ``(ct + comm) - ct`` round trip), so the
+        cohort's clock equals the dense one.  rows (C,) global ids; nbr
+        their (C, D) global neighbour ids; live (C, D) {0,1} live edges."""
+        ct = self.compute_node[rows]
+        node_t = gathered_round_times(self.lat, self.goodput, rows, nbr.long(), live,
+                                      per_edge_bytes(nbytes, deg_eff, ct.device), ct,
+                                      self.parallel_sends)
+        return node_t - ct
 
     def _secure_recovery_bytes(self, active: np.ndarray) -> np.float32:
         """Wire bytes of the seed-recovery pass: one revealed seed share per
@@ -182,7 +218,8 @@ class RoundSteps:
         return Wm, deg, key, share_kw
 
     def train_and_mix(self, X, opt_state, share_state, bx, by, W, rnd: int = 0, act=None,
-                      live_edges=None, faults: Optional[RoundFaults] = None):
+                      live_edges=None, faults: Optional[RoundFaults] = None,
+                      time_reduce: str = "max"):
         """One round: local steps (in place on X), then the share/mix step.
 
         ``act`` is None for full participation, else the round's mask as
@@ -204,8 +241,11 @@ class RoundSteps:
         Returns ``(X', opt_state, share_state, nbytes, sim_t, fstats)``:
         the bytes each node sent (seed-recovery bytes included) as an
         fp32-rounded float, the simulated round time as a 0-d device
-        tensor, and the ``faults.STAT_KEYS`` counters, floats or (the
-        guard's detections) 0-d device tensors."""
+        tensor (``time_reduce="max"``) or the (N,) per-node times
+        (``"none"``, for the local scheduler's clocks; the compute times
+        alone without a network model), and the ``faults.STAT_KEYS``
+        counters, floats or (the guard's detections) 0-d device
+        tensors."""
         plan = self.faults
         fstats = faults_lib.zero_stats()
         active = None if act is None else act[0]
@@ -259,7 +299,12 @@ class RoundSteps:
             share_state = node_where_(good, share_state, share0)
             fstats["faults_detected"] = fstats["faults_recovered"] = bad.sum()
         if self.lat is not None:
-            sim_t = self.round_time(Wm, float(nbytes), float(deg), active, lat_mult)
+            sim_t = self.round_time(Wm, float(nbytes), deg, active, lat_mult,
+                                    reduce=time_reduce)
+        elif time_reduce == "none":
+            # no network: comm is free, the compute times still drive the
+            # clocks (as the async scheduler's cadence is compute-only)
+            sim_t = self.compute_node if active is None else active * self.compute_node
         else:
             sim_t = torch.zeros((), dtype=torch.float32, device=X.device)
         return X2, opt_state, share_state, float(nbytes), sim_t, fstats

@@ -17,6 +17,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import prng
+
 
 @dataclasses.dataclass
 class Graph:
@@ -336,6 +338,32 @@ def stage_rounds(stack: "SparseTopology", device) -> List["SparseTopology"]:
         t._merge[False] = (nbr_i, w_d[i])
         views.append(t)
     return views
+
+
+def gather_rows(topo: SparseTopology, rows) -> SparseTopology:
+    """Cohort view of a topology on the device: the (C, D) ``nbr``/``w``
+    and (C,) ``w_self`` rows of the global ids ``rows``.  ``nbr`` keeps
+    global ids, which the cohort path resolves against the population."""
+    return SparseTopology(topo.nbr[rows], topo.w[rows], topo.w_self[rows])
+
+
+def sample_neighbor_slots(key, topo: SparseTopology, rows=None):
+    """(N,) int64: one uniformly drawn valid neighbour slot per row (valid
+    slots have w > 0), bitwise the JAX package's draw: row i's uniform is
+    ``prng.uniform(fold_in(key, ids[i]), ())`` with ``ids`` the global ids
+    (``rows``, default arange), its target rank ``floor(u * max(deg, 1))``
+    among the valid slots.  A row without a valid slot gets slot 0, whose
+    padded entry is the node itself."""
+    valid = topo.w > 0
+    deg = valid.sum(1)
+    ids = (torch.arange(valid.shape[0], device=valid.device) if rows is None
+           else rows.to(torch.int64))
+    u = prng.uniform(prng.fold_in(key, ids.reshape(-1, 1)), ())
+    t = torch.floor(u * torch.clamp_min(deg, 1).to(torch.float32)).to(torch.int64)
+    pos = torch.cumsum(valid, 1) - 1
+    hit = valid & (pos == t[:, None])
+    # the first slot holding the target rank (slot 0 where none does)
+    return torch.where(hit.any(1), hit.to(torch.int8).argmax(1), 0)
 
 
 @dataclasses.dataclass

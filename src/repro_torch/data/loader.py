@@ -1,7 +1,15 @@
-"""Per-node batch indices (numpy; bitwise those of the JAX package).
+"""Per-node batch indices, bitwise those of the JAX package.
 
-Only the ``"stream"`` keying is ported: one numpy PCG64 stream per round
-fills a (steps, N, B) uniform block, mapped onto each node's partition.
+Two keyings (``DLConfig.batch_keying``):
+
+* ``"stream"`` — one numpy PCG64 stream per round fills a (steps, N, B)
+  uniform block, mapped onto each node's partition on the host;
+* ``"node"`` — :func:`node_batch_indices`: each (round, node) pair owns a
+  Threefry stream, ``fold_in(fold_in(key, round), id)`` through
+  ``repro_torch.prng``, so the indices of any subset of rows (a gathered
+  cohort) are computed on the device and equal those of the full
+  population.
+
 The engine keeps the dataset on the device and gathers each round's batch
 there by these indices.  The federated runner samples per node instead
 (:meth:`NodeBatcher.batch`).
@@ -11,6 +19,9 @@ from __future__ import annotations
 from typing import List
 
 import numpy as np
+import torch
+
+from repro_torch import prng
 
 
 class NodeBatcher:
@@ -70,3 +81,23 @@ class NodeBatcher:
 
     def test_batch(self, max_n: int = 512):
         return self.x[:max_n], self.y[:max_n]
+
+    def device_tables(self, device):
+        """(lens (N,) fp32, parts_pad (N, maxlen) int64) on ``device``: the
+        partition tables :func:`node_batch_indices` samples from."""
+        return (torch.as_tensor(self._lens.astype(np.float32), device=device),
+                torch.as_tensor(self._parts_pad, device=device))
+
+
+def node_batch_indices(base_key, round_idx: int, ids, lens, parts_pad,
+                       local_steps: int, batch_size: int):
+    """(L, n, B) int64 global sample indices for the global node ids
+    ``ids`` (an int64 tensor on the tables' device): row i draws the fp32
+    uniforms of ``fold_in(fold_in(base_key, round_idx), ids[i])`` over
+    (L, B) and truncates ``u * len`` into its padded partition row.  A pure
+    function of (key, round, id), so any subset of rows draws what the
+    full population draws for it."""
+    rk = prng.fold_in(base_key, int(round_idx))
+    u = prng.uniform(prng.fold_in(rk, ids.reshape(-1, 1)), (local_steps, batch_size))
+    loc = (u * lens[ids][:, None, None]).to(torch.int64)   # (n, L, B)
+    return parts_pad[ids[:, None, None], loc].movedim(0, 1)

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from repro.core import DLConfig as JDLConfig
+from repro.core import FaultPlan as JFaultPlan
 from repro.core import RoundEngine as JRoundEngine
 from repro.core import sharing as jsharing
 from repro.data import NodeBatcher as JNodeBatcher
@@ -248,22 +249,50 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(semantics="local"), dict(semantics="async"), dict(sharing="randomk", semantics="async"),
     dict(sharing="randomk", randk_sampler="strided", shard_devices=2),
-    dict(sharing="int8", faults=FaultPlan(msg_loss=0.1), semantics="local"),
-    dict(sharing="quant", cohort_capacity=4),
     dict(secure=True, secure_recovery=True, faults=FaultPlan(crashes=((0, 1, 2),)),
          shard_devices=2),
-    dict(sharing="topk", participation=0.5, semantics="async"),
-    dict(sharing="choco", participation=0.5, cohort_capacity=4),
-    dict(faults=FaultPlan(msg_loss=0.1), semantics="async"), dict(shard_devices=2),
-    dict(cohort_capacity=4),
-    dict(backend="processes"), dict(topology="dynamic", batch_keying="node"),
-    dict(batch_keying="node"),
+    dict(shard_devices=2), dict(backend="processes"),
 ])
 def test_validate_raises_not_implemented(knob):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         DLConfig(**knob).validate()
+
+
+# the scheduler, cohort and batch-keying knobs (unported until the local
+# and async schedulers came in): the port accepts and rejects them as the
+# reference does; each case is (knobs, FaultPlan kwargs or None)
+SEMANTICS_ACCEPTED = [
+    (dict(semantics="local"), None), (dict(semantics="async"), None),
+    (dict(sharing="int8", semantics="local"), dict(msg_loss=0.1)),
+    (dict(semantics="async"), dict(msg_loss=0.1)),
+    (dict(topology="dynamic", batch_keying="node"), None), (dict(batch_keying="node"), None),
+]
+SEMANTICS_REJECTED = [
+    (dict(sharing="randomk", semantics="async"), None),
+    (dict(sharing="quant", cohort_capacity=4), None),
+    (dict(sharing="topk", participation=0.5, semantics="async"), None),
+    (dict(sharing="choco", participation=0.5, cohort_capacity=4), None),
+    (dict(cohort_capacity=4), None),
+]
+
+
+def _semantics_cfgs(knob, plan):
+    return [cls(**knob, **({} if plan is None else {"faults": fp(**plan)}))
+            for cls, fp in ((JDLConfig, JFaultPlan), (DLConfig, FaultPlan))]
+
+
+@pytest.mark.parametrize("knob,plan", SEMANTICS_ACCEPTED)
+def test_validate_accepts_the_semantics_knobs_as_jax_does(knob, plan):
+    for cfg in _semantics_cfgs(knob, plan):
+        cfg.validate()
+
+
+@pytest.mark.parametrize("knob,plan", SEMANTICS_REJECTED)
+def test_validate_rejects_the_semantics_knobs_as_jax_does(knob, plan):
+    for cfg in _semantics_cfgs(knob, plan):
+        with pytest.raises(ValueError):
+            cfg.validate()
 
 
 @pytest.mark.parametrize("knob", [

@@ -3,8 +3,8 @@
 ``examples/churn.py`` and ``examples/fl_vs_dl.py`` run on the CPU at 4
 nodes and 2 rounds, through ``DecentralizedRunner`` (and
 ``FederatedRunner``), and give what a ``RoundEngine`` with the same
-settings gives; the process backend and the unported schedulers still
-raise."""
+settings gives; the churn twin also under the local and async
+schedulers; the process backend still raises."""
 import math
 
 import pytest
@@ -45,9 +45,18 @@ def test_faults_twin_counts_what_it_injects(capsys):
         assert int(surv) >= 2  # node 1 down in rounds 0 and 1
 
 
-def test_churn_twin_raises_for_unported_semantics():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        churn.main(["--device", "cpu", "--semantics", "async"])
+@pytest.mark.parametrize("semantics", ["local", "async"])
+def test_churn_twin_runs_the_scheduler_semantics(semantics, capsys):
+    """``--semantics local|async`` with stragglers: the clock column is
+    printed (and staleness under async), and every setting trains."""
+    out = churn.main(["--device", "cpu", "--nodes", "4", "--rounds", "2", "--semantics",
+                      semantics, "--straggler-factor", "10", "--straggler-frac", "0.25"])
+    assert list(out) == [f"participation={p}" for p in (1.0, 0.9, 0.7, 0.5)]
+    for acc, sent in out.values():
+        assert 0.0 <= acc <= 1.0 and sent > 0
+    text = capsys.readouterr().out
+    assert "median node clock" in text
+    assert ("staleness" in text) == (semantics == "async")
 
 
 def test_runner_wraps_the_engine():

@@ -80,8 +80,11 @@ REJECTED = {
     "chunk_rounds 0": (dict(chunk_rounds=0), dict(msg_loss=0.1)),
     "secure with msg_loss": (dict(secure=True, secure_recovery=True), dict(msg_loss=0.1)),
     "secure crashes without recovery": (dict(secure=True), dict(crashes=((1, 1, 3),))),
+    "cohort path": (dict(cohort_capacity=4, semantics="async"), dict(msg_loss=0.1)),
 }
 ACCEPTED = {
+    "local semantics": (dict(semantics="local"), dict(msg_loss=0.1)),
+    "async semantics": (dict(semantics="async"), dict(msg_loss=0.1)),
     "loss, spikes, corruption, crashes": (dict(participation=0.9), dict(
         msg_loss=0.1, latency_spike_prob=0.05, corrupt_prob=0.05, crashes=((3, 2, 5),))),
     "dense mixing": (dict(mixing="dense"), dict(msg_loss=0.2)),
@@ -108,10 +111,7 @@ def test_dlconfig_accepts_what_the_reference_accepts(name):
     DLConfig(n_nodes=12, faults=FaultPlan(**plan), **knobs).validate()
 
 
-@pytest.mark.parametrize("knobs,item", [
-    (dict(semantics="local"), 5), (dict(semantics="async"), 5),
-    (dict(shard_devices=2), 6), (dict(cohort_capacity=4, semantics="async"), 5),
-])
+@pytest.mark.parametrize("knobs,item", [(dict(shard_devices=2), 6)])
 def test_unported_fault_paths_raise_not_implemented(knobs, item):
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         DLConfig(n_nodes=12, faults=FaultPlan(msg_loss=0.1), **knobs).validate()

@@ -796,3 +796,88 @@ def test_fault_and_churn_engines_on_gpu_match_the_cpu(knobs, launches):
         t = gpu.scheduler._fault_totals
         assert t["faults_injected"] == t["faults_detected"] + t["faults_survived"]
         assert t["faults_detected"] == t["faults_recovered"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,p", [(100_000, 8192, 306), (4096, 256, 579_594)])
+def test_cohort_merge_through_the_gather_merge_on_gpu(n, c, p):
+    """The async cohort path's neighbourhood merge: rows ``[cids | nbr]``
+    of the (N, P) population, (C, 1+D) weights, one kernel launch, against
+    the plain twin on the card."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(n)
+    X = torch.randn((n, p), generator=g, device=dev)
+    topo = ttop.SparseTopology.regular_circulant(n, 4).to(dev)
+    cids = torch.sort(torch.randperm(n, generator=g, device=dev)[:c]).values
+    rows = torch.cat([cids[:, None], topo.nbr[cids].long()], 1).to(torch.int32).contiguous()
+    w = torch.cat([topo.w_self[cids, None], topo.w[cids]], 1).contiguous()
+    before = gm.gossip_mix_rows.launches
+    out = gm.gossip_mix_rows(X, rows, w)
+    assert gm.gossip_mix_rows.launches == before + 1
+    torch.testing.assert_close(out, gm.gossip_mix_rows_ref(X, rows, w), rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_int8_cold_rows_on_gpu_equal_the_cpu_codes():
+    """The cold-row codec through the quantize and dequantize kernels:
+    codes, scales and decoded rows bitwise those of the CPU twins, and a
+    decoded row re-encodes to its own codes."""
+    from repro_torch.core import compression as tcomp
+
+    dev = _card()
+    g = torch.Generator().manual_seed(1)
+    tree = {"w1": torch.randn((4096, 16, 16), generator=g) * 3,
+            "b1": torch.randn((4096, 16), generator=g), "t": torch.arange(4096, dtype=torch.int32)}
+    tree["b1"][7] = 0.0
+    cpu = tcomp.encode_cold(tree, "int8")
+    before = (tq.quantize.launches, tq.dequantize.launches)
+    gpu = tcomp.encode_cold({k: v.to(dev) for k, v in tree.items()}, "int8")
+    for k in ("w1", "b1"):
+        assert torch.equal(gpu[k].q.cpu(), cpu[k].q) and torch.equal(gpu[k].s.cpu(), cpu[k].s)
+    dec = tcomp.decode_cold(gpu, "int8")
+    assert (tq.quantize.launches - before[0], tq.dequantize.launches - before[1]) == (2, 2)
+    ref = tcomp.decode_cold(cpu, "int8")
+    for k in tree:
+        assert torch.equal(dec[k].cpu(), ref[k])
+    again = tcomp.encode_cold(dec, "int8")
+    assert torch.equal(again["w1"].q, gpu["w1"].q)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,c,seg", [(1 << 20, 8192, 11), (4096, 256, 4)])
+def test_stable_tie_selection_on_gpu_equals_the_cpu(n, c, seg):
+    """Flat and hierarchical cohort selection over clocks with ties by the
+    thousand (``lax.top_k``'s lowest-id tie order through stable sorts):
+    the card picks the CPU's cohort, padding slots included, and hier
+    picks flat's members."""
+    import types
+
+    from repro_torch.core.scheduler import AsyncScheduler
+
+    dev = _card()
+    g = torch.Generator().manual_seed(n)
+    t = (torch.randint(0, 64, (n,), generator=g).to(torch.float32) * 1e-3 + 1.0)
+
+    def sched(device):
+        s = types.SimpleNamespace(_cohort_c=c, _seg=seg, _n_seg=-(-n // seg),
+                                  _seg_k=max(c, 2 * (-(-c // seg)), 8),
+                                  eng=types.SimpleNamespace(dl=types.SimpleNamespace(
+                                      async_slice_s=2e-3, n_nodes=n)))
+        s._select_flat = lambda *a, **k: AsyncScheduler._select_flat(s, *a, **k)
+        s._select_segments = lambda *a: AsyncScheduler._select_segments(s, *a)
+        s._seg_min = AsyncScheduler._build_seg_min(s, t.to(device))
+        return s
+
+    out = {}
+    for device in ("cpu", dev):
+        s = sched(device)
+        flat = AsyncScheduler._select_flat(s, t.to(device))
+        hier = AsyncScheduler._select_hier(s, t.to(device), s._seg_min)
+        out[str(device)] = [v.cpu() for v in flat + hier[:4]]
+        # the selected members, occupancy and overflow agree (capacity
+        # padding slots, cmask 0, may name other rows: they are no-ops)
+        assert torch.equal(flat[0][flat[1] > 0], hier[0][hier[1] > 0])
+        assert torch.equal(flat[2], hier[2]) and torch.equal(flat[3], hier[3])
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        assert torch.equal(a, b)
+    assert 0 < int(out["cpu"][2]) <= c
