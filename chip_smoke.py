@@ -70,6 +70,19 @@ Phases (any failure raises and the exit code is non-zero):
    card's allocated bytes; then the reference's oracles on the card:
    hier == flat bitwise (N=4096, C=256) and the cohort at C = N == the
    dense path bitwise;
+8i. processes: the real-network backend (``repro_torch.runtime``) on the
+   card: the gather merge, the payload merge and the int8 codec at a
+   worker's block shapes, then ``ProcessRunner`` with K=4 worker processes
+   sharing the card, N=256 nodes in blocks of 64, GN-LeNet at width 32,
+   5-regular, 6 rounds over localhost TCP: full sharing (one gather merge
+   per worker per round) and random-k at 10% with the int8 wire (per
+   worker per round one payload merge, one quantize, one dequantize of its
+   own payload and one of each received frame), each worker's device and
+   its launches past warm-up, the round walls (slowest worker) against
+   ``localhost_deployment``'s round time for the same bytes, rounds/s;
+   and a [reference] case at N=16: the process run on the card against
+   the same run on the CPU and the port's simulator on both, within 1e-4,
+   with equal bytes and eval rounds;
 9. reference: the full-sharing, fault-injected (sparse and dense W),
    secure (plain, and with spikes, corruption and a crash window), dynamic,
    random-k (alone and under churn), Nesterov momentum and AdamW engines,
@@ -82,8 +95,10 @@ Phases (any failure raises and the exit code is non-zero):
    same inputs and key, must agree;
 9b. examples: ``repro_torch.topologies_dynamic``,
    ``repro_torch.sparsification``, ``repro_torch.faults``,
-   ``repro_torch.churn`` (also with ``--semantics local`` and ``async``)
-   and ``repro_torch.fl_vs_dl`` on the card at ``--rounds 4``;
+   ``repro_torch.churn`` (also with ``--semantics local`` and ``async``),
+   ``repro_torch.fl_vs_dl`` and ``repro_torch.secure_aggregation`` on the
+   card at ``--rounds 4``, and ``repro_torch.processes`` (the kill demo,
+   and ``--rejoin``) at its defaults;
 10. lm-kernels: the sliding-window attention and SSD chunk kernels against
    their twins at the two language-model paths' shapes and a few others,
    with ``scaled_dot_product_attention`` under the same band mask as the
@@ -150,7 +165,7 @@ PASS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms
 # further checks of a kernel kept under its JSON entry: the fine histogram
 # pass, the quantize noise form, and the callers of the sampled strategies
 FORMS = ("fine_pass", "noise_form", "dynamic_table", "randk_rows", "strided_rows", "prng_noise",
-         "full_width", "cohort_rows", "cold_rows")
+         "full_width", "cohort_rows", "cold_rows", "block_rows")
 PROFILER_BOOKKEEPING = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
 PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_times' padding
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
@@ -1484,6 +1499,15 @@ SCHED_CFG = dict(compute_time_s=0.05, straggler_factor=10.0, straggler_frac=0.1)
 # a cohort engine on a spread clock with a window (the hierarchy's regime)
 COHORT_CFG = dict(semantics="async", batch_keying="node", compute_time_s=0.05,
                   compute_spread=3.0, async_slice_s=0.02)
+# the [processes] phase: K worker processes sharing the card, N nodes in
+# row blocks of N/K, GN-LeNet at the main path's width (P = 579,594)
+PROC_N, PROC_K, PROC_ROUNDS, PROC_BUDGET = 256, 4, 6, 0.1
+PROC_B, PROC_KP = PROC_N // PROC_K, int(PROC_BUDGET * MAIN_P)
+PROC_WL = {"dataset": "cifar10", "model": "cnn", "width": 32, "n_train": 8192, "n_test": 512,
+           "lr": 0.05}
+# the [reference] process case: tests/test_runtime.py's workload
+PROC_REF_WL = {"dataset": "cifar10", "model": "mlp", "width": 1, "n_train": 256,
+               "n_test": 128, "lr": 0.05}
 REFERENCE_CASES = (  # (label, engine knobs, "whole" run or share-step "replay")
     ("full", dict(sharing="full"), "whole"),
     ("faults-sparse", dict(participation=0.9, faults=dict(CHURN_FAULTS, crashes=((5, 0, 1),))),
@@ -1633,7 +1657,12 @@ def phase_examples():
     (participation 1.0 to 0.5) and ``repro_torch.fl_vs_dl`` (FedAvg
     against D-PSGD), each with the accuracy and MB/node it returns and the
     kernel launches of its run; the sparse overlays must reach the gather
-    merge and the payload strategies the payload merge."""
+    merge and the payload strategies the payload merge.  Then
+    ``repro_torch.secure_aggregation`` (D-PSGD against secure, the masked
+    message and the aggregate; the keyed mask kernel must run) and
+    ``repro_torch.processes`` at its defaults (4 workers on the card, one
+    killed) and with ``--rejoin`` (the killed worker relaunched and
+    re-admitted; the twin asserts it)."""
     import math
 
     from repro_torch import churn, faults, fl_vs_dl, sparsification, topologies_dynamic
@@ -1661,6 +1690,32 @@ def phase_examples():
         if any(launches[k] == 0 for k in must):
             raise AssertionError(f"{name}: a kernel of {must} was not launched: {launches}")
         res[" ".join([name] + argv[:2])] = out
+    from repro_torch import processes, secure_aggregation
+
+    reset_launches()
+    t = time.time()
+    out = secure_aggregation.main(["--rounds", "4"])
+    launches = read_launches()
+    print(f"[examples] secure_aggregation --rounds 4 in {time.time() - t:.2f} s: "
+          + ", ".join(f"{k} acc {a:.4f} MB/node {b / 1e6:.3f}" for k, (a, b) in out.items())
+          + f"; launches={launches}", flush=True)
+    if launches["secure_mask_apply_rows_keyed"] == 0 or launches["gossip_mix_rows"] == 0:
+        raise AssertionError(f"secure_aggregation: the mask or merge kernel was not launched")
+    res["secure_aggregation"] = out
+    # the process-backend twin: the kill demo at its defaults, and rejoin
+    for argv in ([], ["--rejoin"]):
+        t = time.time()
+        runner = processes.main(argv)
+        print(f"[examples] processes {' '.join(argv)} in {time.time() - t:.2f} s: final acc "
+              f"{runner.history[-1]['acc_mean']:.4f}, rows {int(runner.live_rows.sum())}, "
+              f"faults_detected {runner.counters['faults_detected']}, rejoined "
+              f"{runner.workers_rejoined}, launches {runner.launches}, devices "
+              f"{sorted({r['device'] for r in runner.worker_results.values()})}, boot s "
+              f"{ {w: r['boot_s'] for w, r in sorted(runner.worker_results.items())} }",
+              flush=True)
+        if runner.launches["gossip_mix_rows"] == 0:
+            raise AssertionError("processes twin: no gather merge in the workers")
+        res[" ".join(["processes"] + argv)] = runner.history[-1]["acc_mean"]
     return res
 
 
@@ -2321,6 +2376,205 @@ def phase_scheduler_kernels():
     return out
 
 
+def phase_process_kernels():
+    """The kernels at a process worker's shapes (the [processes] phase's
+    worker 1 of 4 over N=256, P=579,594): the gather merge of the own
+    64-row block over the 256-row view (K=6), the payload merge of the
+    own rows from the 256 payload rows of random-k at 10% (k=57,959, the
+    int8 wire's self slot, S=6), and the codec over the own (64, k)
+    payload."""
+    import torch
+    from repro_torch.core.topology import SparseTopology
+    from repro_torch.kernels import gossip_mix as gm
+    from repro_torch.kernels import quantize as q
+    from repro_torch.kernels import scatter_gossip as sg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n, b, p, k = PROC_N, PROC_B, MAIN_P, PROC_KP
+    lo, hi = b, 2 * b
+    rows, w = SparseTopology.regular_circulant(n, MAIN_DEG).to(dev).merge_tables()
+    rows, w = rows[lo:hi].contiguous(), w[lo:hi].contiguous()
+    X = torch.randn((n, p), generator=gen, device=dev)
+    read = int(torch.unique(rows).numel())
+    out = {"gossip_mix_rows": check(
+        f"gossip_mix_rows fp32 worker block B={b} of N={n} K={rows.shape[1]} P={p}",
+        lambda: gm.gossip_mix_rows(X, rows, w), lambda: gm.gossip_mix_rows_ref(X, rows, w),
+        None, merge_bound_ms(b, rows.shape[1], p, 4, read), tol=1e-5)}
+    idx = torch.sort(torch.argsort(torch.rand((n, p), generator=gen, device=dev), 1)[:, :k],
+                     1).values.to(torch.int32)
+    val = X.gather(1, idx.long())
+    own = X[lo:hi]
+    out["payload_mix_rows"] = check(
+        f"payload_mix_rows int8-wire worker block B={b} of N={n} P={p} S={rows.shape[1]} k={k}",
+        lambda: sg.payload_mix_rows(own, idx, val, rows, w, sorted_idx=True),
+        lambda: sg.payload_mix_rows_ref(own, idx, val, rows, w), None,
+        payload_bound(b, p, read, k, rows.shape[1]), tol=1e-5)
+    v = val[lo:hi].contiguous()
+    out["quantize"] = check(f"quantize worker payload {b} x {k}", lambda: q.quantize(v),
+                            lambda: q.quantize_ref(v), None, codec_bound(b, k, False))
+    codes, scale = q.quantize(v)
+    out["dequantize"] = check(f"dequantize worker payload {b} x {k}",
+                              lambda: q.dequantize(codes, scale),
+                              lambda: q.dequantize_ref(codes, scale), None,
+                              codec_bound(b, k, False))
+    del X, idx, val, v, codes, scale
+    torch.cuda.empty_cache()
+    return out
+
+
+def frames_per_round(n, workers, degree):
+    """ROWS frames the workers receive per round: the (receiver, sender)
+    worker pairs with an edge between their row blocks."""
+    import numpy as np
+    from repro_torch.core.topology import SparseTopology
+
+    st = SparseTopology.regular_circulant(n, degree)
+    owner = np.arange(n) // (n // workers)
+    nbr, live = np.asarray(st.nbr), np.asarray(st.w) > 0
+    pairs = {(owner[i], owner[j]) for i in range(n) for j in nbr[i][live[i]]
+             if owner[i] != owner[j]}
+    return len(pairs)
+
+
+def drive_processes(path, dl, workload, want, **runner_kw):
+    """One ``ProcessRunner`` run on the card: every kernel count summed
+    over the workers' rounds (warm-up apart) held to ``want`` (the kernels
+    not named: 0), each worker on the card, finite parameters; prints the
+    round walls (the slowest worker's) against ``localhost_deployment``'s
+    round time for the same bytes (``runtime.calibrate``'s measure),
+    rounds/s after the first round, bytes per node and the row-sum
+    error.  Returns the runner."""
+    import numpy as np
+    from repro_torch.core.engine import build_graph
+    from repro_torch.core.network import localhost_deployment
+    from repro_torch.core.topology import SparseTopology
+    from repro_torch.runtime import ProcessRunner
+
+    t = time.time()
+    r = ProcessRunner(dl, workload, workers=PROC_K, watchdog_s=300.0, join_timeout_s=300.0,
+                      **runner_kw)
+    hist = r.run(log=True)
+    wall = time.time() - t
+    devices = {w: res["device"] for w, res in sorted(r.worker_results.items())}
+    walls = r.round_wall_s
+    if dl.sharing == "randomk":
+        k = max(1, int(dl.budget * r.n_params))
+        per_edge = k * (4 + (1 if dl.payload_quant else 4)) + (4 if dl.payload_quant else 0)
+    else:
+        per_edge = r.n_params * 4
+    graph = build_graph(dl)
+    modeled = localhost_deployment(dl.n_nodes).round_time(graph, per_edge, compute_time_s=0.0)
+    rps = (len(walls) - 1) / sum(walls[1:])
+    topo = SparseTopology.from_graph(graph)
+    row_err = float(np.abs(np.asarray(topo.w_self) + np.asarray(topo.w).sum(1) - 1.0).max())
+    print(f"[{path}] N={dl.n_nodes} K={PROC_K} P={r.n_params} {dl.sharing}"
+          f"{' int8' if dl.payload_quant else ''}: run {wall:.2f} s (worker boot and warm-up "
+          f"included); round walls (slowest worker) {walls} s, median "
+          f"{float(np.median(walls))} s, steady median {float(np.median(walls[1:]))} s against "
+          f"localhost_deployment round_time {modeled} s for {per_edge} B per edge "
+          f"(ratio {float(np.median(walls[1:])) / modeled:.1f}); rounds/s after the first "
+          f"round {rps:.4f}; bytes_per_node {r.bytes_sent}; wire {r.wire_dtype}; row-sum error "
+          f"{row_err} (reweight {r.reweight_row_err}); devices {devices}; launches {r.launches}; "
+          f"warm-up launches "
+          f"{ {w: res['warmup_launches'] for w, res in sorted(r.worker_results.items())} }; "
+          f"worker boot s (set-up, warm-up, registered) "
+          f"{ {w: res['boot_s'] for w, res in sorted(r.worker_results.items())} }; "
+          f"acc_mean {[h['acc_mean'] for h in hist]}", flush=True)
+    # the round's phases: per phase, the median over rounds of the
+    # slowest worker's seconds
+    phases = {}
+    for ph in ("local", "encode", "send", "gather", "merge"):
+        per_round = zip(*[[p[ph] for p in res["round_phases_s"]]
+                          for res in r.worker_results.values()])
+        phases[ph] = float(np.median([max(v) for v in per_round]))
+    print(f"[{path}] round phases, median of the slowest worker (s): {phases}", flush=True)
+    want = {**{kname: 0 for kname in r.launches}, **want}
+    if r.launches != want:
+        raise AssertionError(f"{path}: launches {r.launches}, want {want}")
+    if set(devices.values()) != {"cuda"} or len(devices) != PROC_K:
+        raise AssertionError(f"{path}: workers not all on the card: {devices}")
+    if not np.isfinite(r.final_X).all() or r.counters["faults_detected"]:
+        raise AssertionError(f"{path}: non-finite parameters or a detected fault: {r.counters}")
+    if len(walls) != dl.rounds or not all(res["completed"] for res in r.worker_results.values()):
+        raise AssertionError(f"{path}: {len(walls)} rounds of {dl.rounds}, or a worker stopped")
+    return r
+
+
+def phase_processes():
+    """The real-network process backend on the card: K=4 worker processes
+    sharing the H100, N=256 nodes in blocks of 64, 5-regular, GN-LeNet at
+    width 32, 6 rounds: (a) full sharing, one gather merge per worker per
+    round; (b) random-k at 10% with the int8 wire, per worker per round one
+    payload merge, one quantize and one dequantize of its own payload plus
+    one of each received frame; (c) [reference] at N=16 (the MLP of
+    tests/test_runtime.py, 3 rounds) from one set of parameters: the
+    process run on the card against the same run on the CPU (equal bytes
+    and eval rounds) and against the port's simulator on the card and on
+    the CPU, all within 1e-4."""
+    import numpy as np
+    from repro_torch import DLConfig, RoundEngine
+    from repro_torch.runtime import build_workload
+    from repro_torch.utils.pytree import tree_map
+
+    base = dict(n_nodes=PROC_N, topology="regular", degree=MAIN_DEG, rounds=PROC_ROUNDS,
+                eval_every=3, backend="processes")
+    rounds = PROC_ROUNDS
+    full = drive_processes("processes", DLConfig(**base), PROC_WL,
+                           {"gossip_mix_rows": PROC_K * rounds})
+    if full.n_params != MAIN_P:
+        raise AssertionError(f"P={full.n_params}, want {MAIN_P}")
+    frames = frames_per_round(PROC_N, PROC_K, MAIN_DEG)
+    rk = drive_processes(
+        "processes-randomk",
+        DLConfig(**base, sharing="randomk", budget=PROC_BUDGET, payload_quant=True), PROC_WL,
+        {"payload_mix_rows": PROC_K * rounds, "quantize": PROC_K * rounds,
+         "dequantize": (PROC_K + frames) * rounds})
+    if rk.wire_dtype != "int8" or rk.history[-1]["wire_dtype"] != "int8":
+        raise AssertionError(f"random-k int8 wire dtype {rk.wire_dtype}")
+    launches = {"processes": full.launches, "processes-randomk": rk.launches}
+    timing = {p: {"round_wall_s": r.round_wall_s, "bytes_per_node": r.bytes_sent}
+              for p, r in (("processes", full), ("processes-randomk", rk))}
+    del full, rk
+    release()
+
+    # (c) card against CPU from one set of parameters
+    cfg = dict(n_nodes=16, topology="regular", degree=MAIN_DEG, rounds=3, eval_every=2, seed=3)
+    f, loss, acc, opt, batcher = build_workload(PROC_REF_WL, DLConfig(**cfg))
+    sims = {"cpu": RoundEngine(DLConfig(**cfg), f, loss, acc, opt, batcher, device="cpu")}
+    init = tree_map(lambda a: a.clone(), sims["cpu"].params)
+    sims["cuda"] = RoundEngine(DLConfig(**cfg), f, loss, acc, opt, batcher, init_params=init,
+                               device="cuda")
+    X = {d: (e.run(log=False), e.X.cpu().numpy())[1] for d, e in sims.items()}
+    from repro_torch.runtime import ProcessRunner
+
+    runs = {}
+    for d in ("cuda", "cpu"):
+        r = ProcessRunner(DLConfig(**cfg, backend="processes"), PROC_REF_WL, workers=PROC_K,
+                          watchdog_s=300.0, join_timeout_s=300.0, device=d, init_params=init)
+        r.run(log=False)
+        runs[d] = r
+    pc, pp = runs["cuda"], runs["cpu"]
+    d_cpu = float(np.abs(pc.final_X - pp.final_X).max())
+    d_sim = {d: float(np.abs(pc.final_X - x).max()) for d, x in X.items()}
+    rounds_eq = [h["round"] for h in pc.history] == [h["round"] for h in pp.history] \
+        == [h["round"] for h in sims["cuda"].history]
+    bytes_eq = [h["bytes_per_node"] for h in pc.history] == \
+        [h["bytes_per_node"] for h in pp.history]
+    print(f"[reference] processes N=16 K={PROC_K} 3 rounds: max |X_card - X_cpu| = {d_cpu} "
+          f"(process runs); against the simulator on the card {d_sim['cuda']}, on the CPU "
+          f"{d_sim['cpu']}; bytes_per_node card {pc.bytes_sent} cpu {pp.bytes_sent} (equal "
+          f"per eval: {bytes_eq}); eval rounds equal: {rounds_eq}; card launches {pc.launches}; "
+          f"devices {[res['device'] for res in pc.worker_results.values()]} / "
+          f"{[res['device'] for res in pp.worker_results.values()]}", flush=True)
+    if not (d_cpu <= 1e-4 and max(d_sim.values()) <= 1e-4 and bytes_eq and rounds_eq):
+        raise AssertionError("the process run on the card disagrees with the CPU or the "
+                             "simulator")
+    if pc.launches["gossip_mix_rows"] != PROC_K * 3 or set(pp.launches.values()) != {0}:
+        raise AssertionError(f"process reference launches card {pc.launches} cpu {pp.launches}")
+    return launches, timing
+
+
 def release():
     """Free a dropped engine before the next path: an engine and its
     scheduler refer to each other, so only the collector frees them, and a
@@ -2415,6 +2669,10 @@ def main():
         release()
     phase_cohort_oracles()
     release()
+    proc_kernels = phase_process_kernels()
+    proc_launches, _ = phase_processes()
+    by_path.update(proc_launches)
+    release()
     phase_reference()
     release()
     phase_examples()
@@ -2438,6 +2696,8 @@ def main():
     checks["gossip_mix_rows"]["cohort_rows"] = sched_kernels["cohort_rows"]
     checks["quantize"]["cold_rows"] = sched_kernels["cold_rows"]
     checks["dequantize"]["cold_rows"] = sched_kernels["cold_decode"]
+    for kernel, rec in proc_kernels.items():
+        checks[kernel]["block_rows"] = rec
     launches["swa_attention_gqa"] = serve_launches["swa_attention_gqa"]
     launches["ssd_chunk"] = forward_launches["ssd_chunk"]
     launches.update({k: v for k, v in topk_launches.items()

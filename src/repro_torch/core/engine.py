@@ -21,8 +21,10 @@ fault injection (``core/faults.py`` ``FaultPlan``: message loss, crash
 windows, latency spikes, payload corruption with the rollback guard);
 per-node learning-rate multipliers; checkpoints of the engine state
 (``save_state``/``load_state``, in the JAX package's file format).
-``DLConfig.validate()`` raises ``NotImplementedError`` for the two knobs
-outside it, ``shard_devices > 0`` and ``backend="processes"``.
+``DLConfig.validate()`` raises ``NotImplementedError`` for the one knob
+outside it, ``shard_devices > 0``.  ``backend="processes"`` (K worker
+processes gossiping over localhost TCP) is ``repro_torch.runtime``'s;
+``RoundEngine`` refuses it and points there.
 
 Device and numerics: the engine runs on the card (``device=None`` means
 ``"cuda"``) and raises if there is none; pass ``device="cpu"`` to run on
@@ -129,6 +131,52 @@ class DLConfig:
         def bad(msg):
             raise ValueError(f"invalid DLConfig: {msg}")
 
+        if self.semantics not in ("sync", "local", "async"):
+            bad(f"unknown semantics {self.semantics!r} (sync|local|async)")
+        if self.backend not in ("simulated", "processes"):
+            bad(f"unknown backend {self.backend!r} (simulated|processes)")
+        # the real-network process backend, as the JAX package checks it
+        if self.backend == "processes":
+            if self.shard_devices > 0:
+                bad("backend='processes' shards nodes over OS processes; "
+                    "shard_devices is the simulated backend's device mesh — "
+                    "drop one of the two")
+            if self.semantics != "sync":
+                bad(f"backend='processes' implements the synchronous round "
+                    f"barrier only for now (got semantics={self.semantics!r});"
+                    " use the simulated backend for local/async semantics")
+            if self.secure:
+                bad("backend='processes' does not run secure aggregation "
+                    "over the socket transport yet; set secure=False or use "
+                    "the simulated backend")
+            if self.faults is not None:
+                bad("FaultPlan injects faults into the *simulated* step; the "
+                    "processes backend takes real faults (kill a worker, see "
+                    "examples/processes.py) — drop the FaultPlan")
+            if self.participation < 1.0 or self.churn_machines > 0:
+                bad("simulated churn masks (participation/churn_machines) "
+                    "don't apply to real processes; model churn by killing "
+                    "workers instead")
+            if self.cohort_capacity > 0 or self.batch_keying != "stream":
+                bad("cohort_capacity/batch_keying='node' are async "
+                    "population-scale knobs of the simulated backend")
+            if self.topology in ("fully", "star") or self.mixing == "dense":
+                bad("processes workers gossip over sparse neighbor tables; "
+                    "fully|star topologies / mixing='dense' have no bounded "
+                    "per-peer send set — use a sparse overlay")
+            if self.topology == "dynamic":
+                bad("backend='processes' needs a static graph to derive "
+                    "its per-peer send/receive sets; topology='dynamic' "
+                    "re-draws them every round")
+            if self.sharing.lower() not in ("full", "randomk", "random"):
+                bad(f"backend='processes' serializes sharing='full' rows or "
+                    f"sharing='randomk' (idx, val) payloads on the wire; "
+                    f"{self.sharing!r} is stateful/unsupported there — use "
+                    "the simulated backend")
+            if self.randk_sampler != "uniform":
+                bad("backend='processes' wires the uniform randomk payload "
+                    "only (strided phases are a simulated fast path)")
+
         # sharing-strategy knob compatibility, as the JAX package checks it
         sparsified = sharing_lib.strategy_takes_budget(self.sharing)
         if self.secure:
@@ -164,13 +212,7 @@ class DLConfig:
             sharing_lib.make_sharing(self.sharing)  # an unknown name raises
         if self.shard_devices > 0:
             todo("node sharding (shard_devices > 0; ROADMAP Queue 1 item 6)")
-        if self.backend == "processes":
-            todo("backend='processes' (ROADMAP Queue 1 item 7)")
 
-        if self.semantics not in ("sync", "local", "async"):
-            bad(f"unknown semantics {self.semantics!r} (sync|local|async)")
-        if self.backend != "simulated":
-            bad(f"unknown backend {self.backend!r} (simulated|processes)")
         if self.async_gossip not in ("neighborhood", "pairwise"):
             bad(f"unknown async_gossip {self.async_gossip!r} (neighborhood|pairwise)")
         if self.payload not in ("auto", "on", "off"):
@@ -377,6 +419,13 @@ class RoundEngine:
         device=None,
     ):
         dl.validate()
+        if dl.backend == "processes":
+            raise ValueError(
+                "RoundEngine is the simulated backend; backend='processes' "
+                "runs K real OS processes — construct "
+                "repro_torch.runtime.ProcessRunner(dl, workload) directly, or "
+                "pass workload= to DecentralizedRunner and it will dispatch"
+            )
         self.device = dev = resolve_device(device)
         if dev.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
@@ -603,6 +652,11 @@ class RoundEngine:
         format, the JAX package's).  Returns the checkpoint file."""
         from repro_torch.checkpoint import save_checkpoint
 
+        if self.dl.semantics != "sync":
+            raise ValueError(
+                "save_state captures the synchronous barrier state only; "
+                "the local/async virtual clocks are not checkpointed yet"
+            )
         self._check_flat_state()
         step = self.rounds_done if step is None else step
         return save_checkpoint(path, step, params=self.params, opt_state=self.opt_state,

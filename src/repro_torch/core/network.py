@@ -181,3 +181,41 @@ def paper_testbed(n_nodes: int) -> NetworkModel:
 def wan_deployment(n_nodes: int) -> NetworkModel:
     """Geo-distributed deployment (every node its own machine, WAN links)."""
     return NetworkModel(Mapping(n_nodes, n_nodes), LOOPBACK, WAN)
+
+
+#: the port's calibration record (``runtime.calibrate``): measured on the
+#: port's workers, apart from the JAX package's ``results/calibration.json``
+CALIBRATION_PATH = "results/torch_calibration.json"
+
+
+def localhost_deployment(n_nodes: int) -> NetworkModel:
+    """Every node on one machine, all links loopback: the modeled twin of
+    the ``backend='processes'`` localhost runs, whose measured round walls
+    ``runtime.calibrate`` holds against :meth:`NetworkModel.round_time`."""
+    return NetworkModel(Mapping(n_nodes, 1), LOOPBACK, LOOPBACK)
+
+
+def load_calibration_fit(path: str = CALIBRATION_PATH) -> Optional[dict]:
+    """The ``fit`` block ``runtime.calibrate`` recorded (``alpha_s`` per-
+    round constant, ``beta_s_per_byte`` residual slope), or None when no
+    sweep has been run."""
+    import json
+    import os
+
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f).get("fit")
+    except (OSError, ValueError):
+        return None
+
+
+def calibrated_localhost(n_nodes: int, path: str = CALIBRATION_PATH) -> NetworkModel:
+    """:func:`localhost_deployment` with the measured per-round overhead
+    constant folded in (the plain model when no calibration file exists)."""
+    fit = load_calibration_fit(path)
+    model = localhost_deployment(n_nodes)
+    if fit:
+        model.overhead_s = float(fit.get("alpha_s", 0.0))
+    return model

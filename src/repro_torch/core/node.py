@@ -2,8 +2,10 @@
 modules and drives the DL loop of the paper's Fig. 2.  One node is one row
 of the node-stacked state; :class:`DecentralizedRunner` is the thin
 wrapper over :class:`repro_torch.core.engine.RoundEngine` that the
-examples drive, with the JAX package's names.  The process backend
-(``backend="processes"``, one OS process per node) is not ported."""
+examples drive, with the JAX package's names.  With
+``backend="processes"`` it runs the experiment as K worker processes
+gossiping over localhost TCP instead (``repro_torch.runtime.ProcessRunner``),
+rebuilt in each worker from a declarative ``workload``."""
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
@@ -15,12 +17,16 @@ from repro_torch.optim import Optimizer
 
 
 class DecentralizedRunner:
-    """Thin wrapper over :class:`RoundEngine` (the simulated backend).
+    """Thin wrapper over :class:`RoundEngine` (the simulated backend) or,
+    for ``backend="processes"``, ``repro_torch.runtime.ProcessRunner``.
 
     loss_fn(params, batch_x, batch_y) -> scalar    (single node)
     acc_fn(params, batch_x, batch_y) -> scalar     (single node)
     heterogeneous_lrs: optional (N,) per-node learning-rate multipliers.
     device: as ``RoundEngine``'s (None: the card).
+    workload: the process backend's declarative experiment
+    (``runtime.build_workload``), which replaces the callables there;
+    ``runner_kw`` go to ``ProcessRunner``.
     """
 
     def __init__(
@@ -32,15 +38,29 @@ class DecentralizedRunner:
         optimizer: Optional[Optimizer] = None,
         batcher=None,
         heterogeneous_lrs: Optional[np.ndarray] = None,
+        workload: Optional[Dict] = None,
         *,
         device=None,
+        **runner_kw,
     ):
-        if dl.backend == "processes":
-            raise NotImplementedError(
-                "backend='processes' is not ported yet (ROADMAP Queue 1 item 7)")
         self.dl = dl
-        self.engine = RoundEngine(dl, init_params_fn, loss_fn, acc_fn, optimizer, batcher,
-                                  heterogeneous_lrs, device=device)
+        if dl.backend == "processes":
+            # callables cannot cross the process boundary: each worker
+            # rebuilds the experiment from the declarative workload
+            if workload is None:
+                raise ValueError(
+                    "backend='processes' rebuilds the experiment inside "
+                    "each worker process; pass workload={'dataset': ..., "
+                    "'model': ..., 'lr': ...} instead of callables"
+                )
+            from repro_torch.runtime import ProcessRunner
+
+            self.engine = ProcessRunner(dl, workload, device=device, **runner_kw)
+        else:
+            if runner_kw:
+                raise TypeError(f"unknown arguments for the simulated backend: {sorted(runner_kw)}")
+            self.engine = RoundEngine(dl, init_params_fn, loss_fn, acc_fn, optimizer, batcher,
+                                      heterogeneous_lrs, device=device)
 
     def run(self, rounds: Optional[int] = None, log: bool = True) -> List[Dict]:
         return self.engine.run(rounds, log)

@@ -107,16 +107,20 @@ def _wire(val, quantize: Optional[str], x_dtype):
     raise ValueError(f"unknown payload quantization {quantize!r} (int8|none)")
 
 
-def _node_keys(key, n: int, device):
-    """(N, 1)-word batch of per-node keys: ``fold_in(key, i)`` for node i,
-    as the reference's ``_node_keys`` folds each node's global id."""
-    return prng.fold_in(key, torch.arange(n, dtype=torch.int64, device=device)[:, None])
+def _node_keys(key, n: int, device, rows=None):
+    """(N, 1)-word batch of per-node keys: ``fold_in(key, i)`` for each
+    node's global id i, as the reference's ``_node_keys`` folds them.
+    ``rows`` (N,) global ids (a process worker's row block) defaults to
+    arange(N)."""
+    ids = (torch.arange(n, dtype=torch.int64, device=device) if rows is None
+           else torch.as_tensor(rows, device=device).to(torch.int64))
+    return prng.fold_in(key, ids[:, None])
 
 
-def _randk_uniforms(key, shape, device):
+def _randk_uniforms(key, shape, device, rows=None):
     """(N, P) per-node ``jax.random.uniform`` draws, node i's from its own
     key (:func:`_node_keys`)."""
-    return prng.uniform(_node_keys(key, shape[0], device), shape[1:])
+    return prng.uniform(_node_keys(key, shape[0], device, rows), shape[1:])
 
 
 def _randk_select(u, k: int):
@@ -132,10 +136,12 @@ def _randk_select(u, k: int):
     return torch.sort(order, dim=1).values.to(torch.int32)
 
 
-def _randk_idx(key, shape, k: int, device):
+def _randk_idx(key, shape, k: int, device, rows=None):
     """(N, k) int32 indices of k random coordinates per row without
-    replacement, rows sorted: the top k of per-node iid uniforms."""
-    return _randk_select(_randk_uniforms(key, shape, device), k)
+    replacement, rows sorted: the top k of per-node iid uniforms.  With
+    ``rows`` (the global ids of the N rows) each row draws what the
+    simulator's row of that id draws."""
+    return _randk_select(_randk_uniforms(key, shape, device, rows), k)
 
 
 def _strided_phase(key, n: int, stride: int, device):

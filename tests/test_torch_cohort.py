@@ -302,9 +302,39 @@ def test_memory_model_equals_jax(kw):
 
 
 def test_checkpoints_of_compressed_cold_rows_raise(tmp_path):
+    """save_state refuses every async engine with the reference's
+    ValueError (its clocks are not checkpointed); load_state keeps the
+    port's NotImplementedError for cold rows, where the reference has no
+    semantics check."""
     eng = _torch_engine(dict(BASE, cohort_capacity=4, cold_dtype="int8"))
     assert eng.X is None and eng.params["w"].shape == (12, P_DIM)
-    with pytest.raises(NotImplementedError, match="cold rows"):
+    with pytest.raises(ValueError, match="synchronous barrier state only"):
         eng.save_state(str(tmp_path))
     with pytest.raises(NotImplementedError, match="cold rows"):
         eng.load_state(str(tmp_path))
+
+
+SAVE_SEMANTICS = {"local": dict(semantics="local", batch_keying="stream"),
+                  "async-fp32": dict(),
+                  "async-cohort-fp32": dict(cohort_capacity=4),
+                  "sync": dict(semantics="sync", batch_keying="stream")}
+
+
+@pytest.mark.parametrize("name", list(SAVE_SEMANTICS))
+def test_save_state_refuses_clocked_semantics_as_jax(name, tmp_path):
+    """save_state raises the reference's ValueError, with its message,
+    under semantics 'local' and 'async' (fp32 state, so the cold-row check
+    would pass), and still saves under 'sync'."""
+    cfg = dict(BASE, **SAVE_SEMANTICS[name])
+    eng, jeng = _torch_engine(cfg), _jax_engine(cfg)
+    if cfg["semantics"] == "sync":
+        path = eng.save_state(str(tmp_path / "t"))
+        assert path.endswith("ckpt_00000000.npz")
+        assert jeng.save_state(str(tmp_path / "j")).endswith("ckpt_00000000.npz")
+        return
+    with pytest.raises(ValueError) as want:
+        jeng.save_state(str(tmp_path / "j"))
+    with pytest.raises(ValueError) as got:
+        eng.save_state(str(tmp_path / "t"))
+    assert str(got.value) == str(want.value)
+    assert not (tmp_path / "t").exists()

@@ -252,7 +252,7 @@ def _leaves(tree):
     dict(sharing="randomk", randk_sampler="strided", shard_devices=2),
     dict(secure=True, secure_recovery=True, faults=FaultPlan(crashes=((0, 1, 2),)),
          shard_devices=2),
-    dict(shard_devices=2), dict(backend="processes"),
+    dict(shard_devices=2), dict(sharing="topk", shard_devices=4),
 ])
 def test_validate_raises_not_implemented(knob):
     with pytest.raises(NotImplementedError, match="not ported yet"):

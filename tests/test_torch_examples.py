@@ -4,13 +4,18 @@
 nodes and 2 rounds, through ``DecentralizedRunner`` (and
 ``FederatedRunner``), and give what a ``RoundEngine`` with the same
 settings gives; the churn twin also under the local and async
-schedulers; the process backend still raises."""
+schedulers.  The twins of ``examples/secure_aggregation.py`` (against
+the reference's byte overhead and masks on the CPU) and
+``examples/processes.py`` (the kill demo, 2 worker processes) too."""
+import functools
 import math
 
 import pytest
 
-from repro_torch import churn, faults, fl_vs_dl, sparsification, topologies_dynamic
+from repro_torch import (churn, faults, fl_vs_dl, processes, secure_aggregation,
+                         sparsification, topologies_dynamic)
 from repro_torch.core import DecentralizedRunner, DLConfig
+from repro_torch.runtime import ProcessRunner
 
 
 @pytest.mark.parametrize("mod,names,printed", [
@@ -77,6 +82,63 @@ def test_runner_wraps_the_engine():
     assert r.params["fc1"]["w"].shape == (4, 3072, 16) and r.share_state == ()
 
 
-def test_process_backend_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        DecentralizedRunner(DLConfig(backend="processes"))
+def test_secure_aggregation_twin_against_jax(capsys, monkeypatch):
+    """The secure-aggregation twin: the secure run costs the reference's
+    byte overhead over D-PSGD (its printed line, from the reference's own
+    byte counts), the masked message on the same models is as far from
+    its sender's as the reference's and the masked aggregate is the
+    plain MH aggregate.  The twin's MLP is narrowed to hidden 4 here: on
+    the CPU the masks are the plain Threefry in torch ops, which at the
+    twin's width 128 takes minutes on a loaded host; the overhead does
+    not depend on the width."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.core import DLConfig as JDLConfig
+    from repro.core import SecureAggregation as JSecureAggregation
+    from repro.core import build_graph as jbuild_graph
+    from repro.core.sharing import FullSharing as JFullSharing
+    from repro_torch.models.mlp import mlp_init
+
+    monkeypatch.setattr(secure_aggregation, "mlp_init",
+                        lambda g, hidden: mlp_init(g, hidden=4))
+    out = secure_aggregation.main(["--device", "cpu", "--rounds", "1", "--nodes", "8"])
+    assert list(out) == ["d-psgd", "secure-agg"]
+    text = capsys.readouterr().out
+    X = np.random.default_rng(0).standard_normal((8, 1000)).astype(np.float32)
+    g = jbuild_graph(JDLConfig(n_nodes=8, topology="regular", degree=4))
+    W = jnp.asarray(g.metropolis_hastings(), jnp.float32)
+    s = JSecureAggregation(g.adj, mask_bound=5.0)
+    agg, _, sec_bytes = s.round(jnp.asarray(X), W, (), jax.random.key(1), degree=4.0, rnd=0)
+    _, _, full_bytes = JFullSharing().round(jnp.asarray(X), W, (), None, degree=4.0)
+    want = f"communication overhead: {float(sec_bytes) / float(full_bytes) - 1:.1%}"
+    assert want in text and want.endswith("3.0%")
+    assert out["secure-agg"][1] / out["d-psgd"][1] - 1 == \
+        pytest.approx(float(sec_bytes) / float(full_bytes) - 1, rel=1e-6)
+    (i, _), m = next(iter(s.messages(jnp.asarray(X), jax.random.key(1), 0).items()))
+    jrel = float(jnp.linalg.norm(m - X[i]) / jnp.linalg.norm(X[i]))
+    jerr = float(jnp.max(jnp.abs(agg - W @ X)))
+    rel, err = secure_aggregation.masked_demo(X, "cpu")
+    # the port's masks are the mask kernel's counter-layout bits, the
+    # reference's messages jax 0.9's ``jax.random.bits`` (a kept
+    # difference): the same distribution, so the same distance to a few %
+    assert rel == pytest.approx(jrel, rel=0.1) and rel > 1.0
+    assert err < 1e-5 and jerr < 1e-5
+    assert f"{rel:.1f}x norm (unreadable)" in text and "(masks cancel)" in text
+
+
+def test_processes_twin_kill_demo(capsys, monkeypatch):
+    """The process-backend twin's kill demo: the killed worker's rows are
+    reweighted away and the survivors finish every round.  The runner gets
+    the chaos tests' timeouts (a 6 s silence declares death, a send may
+    wait 60 s), so a survivor starved by a loaded host is not taken for
+    dead."""
+    monkeypatch.setattr(processes, "ProcessRunner", functools.partial(
+        ProcessRunner, dead_timeout_s=6.0, send_timeout_s=60.0))
+    runner = processes.main(["--device", "cpu", "--nodes", "8", "--workers", "2",
+                             "--rounds", "6", "--kill-worker", "1", "--kill-at-round", "2"])
+    assert runner.counters["faults_detected"] >= 1 and int(runner.live_rows.sum()) == 4
+    assert runner.history[-1]["round"] == 5
+    text = capsys.readouterr().out
+    assert "final consensus error" in text and "killed worker 1" in text

@@ -51,7 +51,11 @@ SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.ker
                  "repro_torch.utils.io", "repro_torch.topologies_dynamic",
                  "repro_torch.sparsification", "repro_torch.core.faults",
                  "repro_torch.core.federated", "repro_torch.faults",
-                 "repro_torch.churn", "repro_torch.fl_vs_dl")
+                 "repro_torch.churn", "repro_torch.fl_vs_dl", "repro_torch.core.network",
+                 "repro_torch.runtime.__init__", "repro_torch.runtime.transport",
+                 "repro_torch.runtime.membership", "repro_torch.runtime.peer",
+                 "repro_torch.runtime.runner", "repro_torch.runtime.calibrate",
+                 "repro_torch.processes", "repro_torch.secure_aggregation")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -881,3 +881,40 @@ def test_stable_tie_selection_on_gpu_equals_the_cpu(n, c, seg):
     for a, b in zip(out["cpu"], out[str(dev)]):
         assert torch.equal(a, b)
     assert 0 < int(out["cpu"][2]) <= c
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sharing", ["full", "randomk-int8"])
+def test_process_workers_launch_their_kernels_on_the_card(sharing):
+    """``ProcessRunner`` with 2 worker processes on the card (N=8, the MLP
+    of the runtime tests, 3 rounds): each worker reports the card, its
+    merge (and codec) launches per round past warm-up, and the run equals
+    the same run's workers on the CPU within 1e-4, with equal bytes."""
+    _card()
+    import numpy as np
+
+    from repro_torch.core import DLConfig, RoundEngine
+    from repro_torch.runtime import ProcessRunner, build_workload
+
+    wl = {"dataset": "cifar10", "model": "mlp", "width": 1, "n_train": 256, "n_test": 64,
+          "lr": 0.05}
+    kw = dict(sharing="randomk", budget=0.25, payload_quant=True) if sharing != "full" else {}
+    cfg = dict(n_nodes=8, topology="regular", degree=3, rounds=3, eval_every=2, seed=2, **kw)
+    f, loss, acc, opt, batcher = build_workload(wl, DLConfig(**cfg))
+    init = RoundEngine(DLConfig(**cfg), f, loss, acc, opt, batcher, device="cpu").params
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        r = ProcessRunner(DLConfig(**cfg, backend="processes"), wl, workers=2, device=dev,
+                          init_params=init, watchdog_s=300.0, join_timeout_s=300.0)
+        r.run(log=False)
+        runs[dev] = r
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert {res["device"] for res in card.worker_results.values()} == {"cuda"}
+    if sharing == "full":
+        assert card.launches == {"gossip_mix_rows": 6, "payload_mix_rows": 0, "quantize": 0,
+                                 "dequantize": 0}
+    else:
+        assert card.launches["payload_mix_rows"] == card.launches["quantize"] == 6
+        assert card.launches["dequantize"] == 6 + 2 * 3  # own + one frame per worker
+    assert card.bytes_sent == cpu.bytes_sent
+    np.testing.assert_allclose(card.final_X, cpu.final_X, rtol=0, atol=1e-4)

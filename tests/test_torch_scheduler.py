@@ -148,8 +148,9 @@ def test_pairwise_partners_are_valid_neighbours():
 
 
 # accept/reject parity of DLConfig.validate over the semantics knobs (the
-# two unported knobs, shard_devices and backend='processes', raise
-# NotImplementedError and stand in test_torch_engine.py)
+# unported knob, shard_devices, raises NotImplementedError and stands in
+# test_torch_engine.py; backend='processes' is held to the reference in
+# test_torch_runtime.py)
 ACCEPT = {
     "local": dict(semantics="local"),
     "local dense": dict(semantics="local", topology="fully"),
