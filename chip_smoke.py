@@ -117,7 +117,20 @@ Phases (any failure raises and the exit code is non-zero):
 13. lm-reference: both models in fp32 at full width and 2 layers, the card
    against the CPU from the same parameters (SmolLM prefill logits and
    greedy ids, Mamba2 forward logits), and Mamba2's forward against its
-   token-by-token decode on the card.
+   token-by-token decode on the card;
+14. train: the decentralized LM trainer (``repro_torch.launch.train``'s
+   ``LMTrainer``) on SmolLM-135M at its published width (30 layers, fp32),
+   N=8 nodes on the 5-regular circulant, batch 4, seq 128, SGD, 20 steps:
+   one gather-merge launch per step over the flat (8, 134,515,008)
+   parameter buffer, steps/s, tokens/s, every loss, peak memory, a
+   profiled step; then that merge alone against its twin and its bound;
+15. train-reference: the trainer on the card against the CPU from the
+   same parameters (SmolLM full width at 2 layers, N=6; the Llama4 MoE
+   smoke config, N=4; a fully connected run), within 1e-4, without TF32;
+16. zoo: qwen3-32b, qwen2-72b, mistral-large-123b and llama4-maverick at
+   their published widths, cut to 2 layers (llama4: one dense and one MoE
+   layer of 128 experts), bf16: a 2 x 512 prefill and 4 greedy steps
+   each, then each smoke config's greedy ids card == CPU.
 
 The line before the last is a JSON object with one entry per TPU kernel
 (13); the last line is ``{"ok": true, "device": {...}}``.
@@ -161,11 +174,12 @@ CMP_ELEMS = 1 << 28  # elements per step of a kernel-twin comparison
 L2_EVICT_BYTES = 256 << 20  # a write over this many bytes clears the 50 MB L2
 YARDSTICK_KEYS = ("searchsorted_", "code_pass_")  # check()'s further yardsticks
 PASS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
-             "device_recorded", "device_launched", "searchsorted_ms", "searchsorted_device_ms")
+             "device_recorded", "device_launched", "searchsorted_ms", "searchsorted_device_ms",
+             "library_ms", "bound_operand_reads_ms")
 # further checks of a kernel kept under its JSON entry: the fine histogram
 # pass, the quantize noise form, and the callers of the sampled strategies
 FORMS = ("fine_pass", "noise_form", "dynamic_table", "randk_rows", "strided_rows", "prng_noise",
-         "full_width", "cohort_rows", "cold_rows", "block_rows")
+         "full_width", "cohort_rows", "cold_rows", "block_rows", "trainer_rows")
 PROFILER_BOOKKEEPING = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
 PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_times' padding
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
@@ -2064,6 +2078,235 @@ def phase_lm_reference():
         raise AssertionError("mamba2-370m: card and CPU, or decode and forward, disagree")
 
 
+# the [train] cell: SmolLM-135M at its published width (30 layers, fp32 as
+# the reference's launch/train.py forces), N=8 on the 5-regular circulant (offsets 1,
+# 2 and the antipodal 4), batch 4, seq 128, SGD at lr 3e-3 with clip 1.0
+TRAIN_N, TRAIN_B, TRAIN_SEQ, TRAIN_STEPS = 8, 4, 128, 20
+TRAIN_PARAMS = 134_515_008  # SmolLM-135M's parameters (configs/smollm_135m.py)
+# [zoo]: prompt batch and length, greedy decode steps, depth
+ZOO_B, ZOO_S, ZOO_NEW, ZOO_LAYERS = 2, 512, 4, 2
+ZOO_DENSE = ("qwen3-32b", "qwen2-72b", "mistral-large-123b")
+LLAMA4 = "llama4-maverick-400b-a17b"
+
+
+def train_args(*argv):
+    """``launch/train.py``'s flags on the card (checkpoints are the
+    ``train()`` loop's; these phases drive its trainer directly)."""
+    from repro_torch.launch.train import parse_args
+
+    return parse_args(["--device", "cuda", *argv])
+
+
+def phase_train():
+    """The LM trainer's main path: ``repro_torch.launch.train``'s
+    ``LMTrainer`` on SmolLM-135M at its published width, N=8 nodes,
+    20 steps; the merge-kernel launches of those 20 steps read with every
+    count set to 0 just before (one per step, no other kernel); steps/s
+    after the first step, tokens/s, every loss (all finite), peak memory,
+    then one more step under the profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import LMTrainer
+    from repro_torch.utils.pytree import tree_size
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t = time.time()
+    tr = LMTrainer(train_args("--arch", "smollm-135m", "--scale", "full", "--nodes",
+                              str(TRAIN_N), "--batch", str(TRAIN_B), "--seq", str(TRAIN_SEQ),
+                              "--steps", str(TRAIN_STEPS), "--topology", "regular",
+                              "--degree", "5", "--optimizer", "sgd", "--lr", "3e-3"))
+    n_params = tree_size(tr.params) // TRAIN_N
+    torch.cuda.synchronize()
+    print(f"[train] {tr.cfg.name}: {tr.cfg.n_layers} layers, d_model {tr.cfg.d_model}, "
+          f"{n_params} parameters per node ({tr.cfg.dtype}), N={tr.n}, topology "
+          f"{tr.topology} degree {tr.tc.degree}, batch {TRAIN_B}, seq {TRAIN_SEQ}, SGD lr 3e-3 "
+          f"clip {tr.tc.grad_clip}; set up in {time.time() - t:.2f} s", flush=True)
+    if n_params != TRAIN_PARAMS:
+        raise AssertionError(f"[train]: {n_params} parameters, want {TRAIN_PARAMS}")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.time()
+    first = tr.run_chunk(0, 1)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    rest = tr.run_chunk(1, TRAIN_STEPS - 1)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat([first, rest]).cpu().numpy()
+    want = {**{k: 0 for k in launches}, "gossip_mix_rows": TRAIN_STEPS}
+    tokens = TRAIN_N * TRAIN_B * TRAIN_SEQ
+    rate = (TRAIN_STEPS - 1) / (t2 - t1)
+    print(f"[train] launches={launches} ({launches['gossip_mix_rows'] / TRAIN_STEPS} merge "
+          f"launches per step)", flush=True)
+    print(f"[train] losses {[float(l) for l in losses]}", flush=True)
+    print(f"[train] first step {(t1 - t0) * 1e3} ms; steps 2-{TRAIN_STEPS}: {rate} steps/s, "
+          f"{rate * tokens} tokens/s ({tokens} tokens per step: N*B*seq); peak "
+          f"max_memory_allocated={peak} B", flush=True)
+    if launches != want or not np.isfinite(losses).all() or len(losses) != TRAIN_STEPS:
+        raise AssertionError(f"[train]: launches {launches} (want {want}) or non-finite losses")
+    profile_call("one [train] step (N=8, full width)", lambda: tr.run_chunk(TRAIN_STEPS, 1))
+    del tr
+    release()
+    return launches
+
+
+def phase_train_merge():
+    """The trainer's gossip alone at its shape: the circulant merge over
+    the (8, 134,515,008) flat fp32 buffer against its twin, a CSR product
+    and its bytes bound (each input read once: 2.57 ms; the 48 operand-row
+    reads of a merge that reuses no row from the L2 would take 9.0 ms)."""
+    import torch
+    from repro_torch.core.mixing import circulant_tables
+    from repro_torch.kernels import gossip_mix as gm
+
+    dev = torch.device("cuda")
+    p = TRAIN_PARAMS
+    rows, _ = circulant_tables(TRAIN_N, 5, dev)
+    w = torch.full(rows.shape, 1.0 / 6, dtype=torch.float32, device=dev)
+    k = rows.shape[1]
+    X = torch.randn((TRAIN_N, p), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev)
+    W = csr_of(rows, w, TRAIN_N)
+    rec = check(f"gossip_mix_rows fp32 trainer merge N={TRAIN_N} K={k} P={p}",
+                lambda: gm.gossip_mix_rows(X, rows, w),
+                lambda: gm.gossip_mix_rows_ref(X, rows, w),
+                lambda: torch.sparse.mm(W, X),
+                merge_bound_ms(TRAIN_N, k, p, 4, TRAIN_N), tol=1e-5, plain_iters=1)
+    operand_reads = (TRAIN_N * k + TRAIN_N) * p * 4 / HBM_BYTES_PER_S * 1e3
+    rec["bound_operand_reads_ms"] = operand_reads
+    print(f"[train] merge: {rec['device_ms']} ms device time against the bound "
+          f"{rec['bound_ms']} ms (inputs read once) and {operand_reads} ms (every operand row "
+          f"read from memory)", flush=True)
+    del X, W
+    release()
+    return rec
+
+
+def _train_pair(argv, cfg=None):
+    """Two ``LMTrainer``s of the same flags (and config) from the same
+    parameters (the CPU's seeded draws), one on the card, one on the CPU."""
+    from repro_torch.launch.train import LMTrainer, parse_args
+
+    cpu = LMTrainer(parse_args(["--device", "cpu", *argv]), cfg=cfg)
+    card = LMTrainer(parse_args(["--device", "cuda", *argv]), init_params_tree=cpu.params,
+                     cfg=cfg)
+    return card, cpu
+
+
+def phase_train_reference():
+    """The trainer on the card against the trainer on the CPU from the same
+    parameters: SmolLM-135M at full width and 2 layers (N=6, the 5-regular
+    circulant, seq 64, 2 steps), the Llama4-Maverick smoke config (N=4 on
+    a ring, 2 steps) and a ``--topology fully`` run (SmolLM smoke, N=8);
+    losses and parameters within 1e-4, fp32 products without TF32."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.utils.pytree import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smollm2 = get_config("smollm-135m").replace(n_layers=2, dtype="float32")
+    cases = (
+        ("smollm-135m full width, 2 layers, N=6 regular",
+         ["--arch", "smollm-135m", "--nodes", "6", "--seq", "64", "--degree", "5"], smollm2),
+        ("llama4-maverick smoke, N=4 ring",
+         ["--arch", LLAMA4, "--nodes", "4", "--seq", "64", "--topology", "ring"], None),
+        ("smollm-135m smoke, N=8 fully",
+         ["--arch", "smollm-135m", "--nodes", "8", "--seq", "64", "--topology", "fully"], None),
+    )
+    for label, argv, cfg in cases:
+        card, cpu = _train_pair(argv + ["--steps", "2"], cfg)
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("[train-reference]: fp32 products would run in TF32")
+        reset_launches()
+        lc = card.run_chunk(0, 2).cpu()
+        merges = read_launches()["gossip_mix_rows"]
+        lp = cpu.run_chunk(0, 2)
+        dl = float((lc - lp).abs().max())
+        dp = max(float((a.cpu() - b).abs().max())
+                 for a, b in zip(tree_leaves(card.params), tree_leaves(cpu.params)))
+        want_merges = 0 if card.topology == "fully" else 2
+        print(f"[train-reference] {label} ({card.cfg.n_layers} layers, d_model "
+              f"{card.cfg.d_model}, topology {card.topology}): losses card {lc.tolist()} cpu "
+              f"{lp.tolist()}, max |card - cpu| loss {dl}, params {dp}; card merge launches "
+              f"{merges}", flush=True)
+        if not (dl <= 1e-4 and dp <= 1e-4 and merges == want_merges):
+            raise AssertionError(f"[train-reference] {label}: card and CPU disagree")
+        del card, cpu
+        release()
+
+
+def phase_zoo():
+    """The newly ported configs on the card: qwen3-32b, qwen2-72b and
+    mistral-large-123b at their published widths, and llama4-maverick at
+    its (128 experts of d_expert 8192, one shared), each cut to 2 layers
+    (llama4: one dense and one MoE layer), bf16, random weights, freed
+    before the next: a prefill of 2 x 512 tokens and 4 greedy decode steps
+    timed, with peak memory and finiteness; then each smoke config's greedy
+    ids on the card equal to the CPU's from the same parameters."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.api import init_params, param_count
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.utils.pytree import tree_map, tree_size
+
+    dev = torch.device("cuda")
+    print(f"[zoo] cuts: depth {ZOO_LAYERS} layers for every config (published: "
+          + ", ".join(f"{a} {get_config(a).n_layers}" for a in ZOO_DENSE + (LLAMA4,))
+          + f"); {LLAMA4}'s 2 layers are one dense and one MoE layer (moe_every 2); "
+          f"random weights; prompts {ZOO_B} x {ZOO_S}, {ZOO_NEW} greedy tokens; widths, "
+          "heads, vocab, experts and dtype (bf16) as published", flush=True)
+    prompts = np.random.default_rng(7).integers(1, 32768, (ZOO_B, ZOO_S))
+    for arch in ZOO_DENSE + (LLAMA4,):
+        cfg = get_config(arch).replace(n_layers=ZOO_LAYERS)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.time()
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+        n_params = tree_size(params)
+        eng = ServingEngine(cfg, ServeConfig(batch=ZOO_B, max_len=ZOO_S + ZOO_NEW), params, dev)
+        toks = torch.as_tensor(prompts % cfg.vocab, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.time() - t
+        eng.generate(toks[:, :64], max_new=1)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        logits, cache = eng.prefill(toks)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        ids = eng.decode(logits, cache, ZOO_S, ZOO_NEW)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        finite = bool(torch.isfinite(logits).all())
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[zoo] {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} "
+              f"parameters ({cfg.dtype}; the published config has {param_count(get_config(arch))}"
+              f"), init {t_init:.2f} s; prefill {ZOO_B}x{ZOO_S} {(t1 - t0) * 1e3} ms, decode "
+              f"{(t2 - t1) * 1e3 / ZOO_NEW} ms per step; logits finite {finite}; ids "
+              f"{ids.cpu().tolist()}; peak max_memory_allocated={peak} B", flush=True)
+        if not (finite and tuple(ids.shape) == (ZOO_B, ZOO_NEW)):
+            raise AssertionError(f"[zoo] {arch}: non-finite logits or bad ids")
+        del params, eng, logits, cache
+        release()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ZOO_DENSE + (LLAMA4,):
+        cfg = get_smoke_config(arch)
+        params = init_params(cfg, torch.Generator().manual_seed(1))
+        p16 = torch.as_tensor(np.random.default_rng(8).integers(1, cfg.vocab, (2, 16)))
+        got = {}
+        for d in ("cpu", dev):
+            eng = ServingEngine(cfg, ServeConfig(batch=2, max_len=24),
+                                tree_map(lambda a: a.to(d), params), d)
+            got[str(d)] = eng.generate(p16.to(d), max_new=8).cpu()
+        same = bool(torch.equal(got["cpu"], got[str(dev)]))
+        print(f"[zoo] {arch} smoke ({cfg.n_layers} layers, d_model {cfg.d_model}, fp32): greedy "
+              f"ids card == cpu: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"[zoo] {arch} smoke: card and CPU greedy ids differ")
+
+
 POP_N, POP_C, MILLION_N = 100_000, 8192, 1_000_000
 POP_SHAPE, POP_HIDDEN, POP_SPREAD = (4, 4, 1), 16, 15.0  # benchmarks/bench_population.py
 
@@ -2685,8 +2928,14 @@ def main():
     forward_launches = phase_forward()
     release()
     phase_lm_reference()
+    release()
+    train_launches = phase_train()
+    train_merge = phase_train_merge()
+    phase_train_reference()
+    phase_zoo()
 
-    by_path.update({"entry": entry_launches, "serve": serve_launches, "forward": forward_launches})
+    by_path.update({"entry": entry_launches, "serve": serve_launches, "forward": forward_launches,
+                    "train": train_launches})
     checks["gossip_mix_rows"] = checks.pop("main")
     checks["gossip_mix_rows"]["dynamic_table"] = sampled["dynamic_table"]
     checks["payload_mix_rows"]["randk_rows"] = sampled["randk_rows"]
@@ -2694,6 +2943,7 @@ def main():
     checks["quantize"]["prng_noise"] = sampled["prng_noise"]
     checks["dequantize"]["full_width"] = sampled["full_width"]
     checks["gossip_mix_rows"]["cohort_rows"] = sched_kernels["cohort_rows"]
+    checks["gossip_mix_rows"]["trainer_rows"] = train_merge
     checks["quantize"]["cold_rows"] = sched_kernels["cold_rows"]
     checks["dequantize"]["cold_rows"] = sched_kernels["cold_decode"]
     for kernel, rec in proc_kernels.items():

@@ -1,10 +1,11 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
 plus the input-shape suite, the port's copy of the JAX package's
 ``configs/__init__.py``.  One module per architecture, each citing its
-source.  The port has the dense sliding-window SmolLM-135M, the SSM
-Mamba2-370M and the hybrid Zamba2-1.2B; the other architectures raise
-``NotImplementedError`` until their model families are ported (ROADMAP
-Queue 1 item 8).
+source.  The port has the dense SmolLM-135M (sliding window), Qwen3-32B,
+Qwen2-72B and Mistral-Large-123B, the MoE Llama4-Maverick-400B-A17B, the
+SSM Mamba2-370M, the hybrid Zamba2-1.2B and the paper's GN-LeNet; the
+other architectures raise ``NotImplementedError`` until their model
+families are ported (ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ ARCHS = [
     # the paper's own workload
     "gn-lenet",
 ]
-PORTED = ("smollm-135m", "mamba2-370m", "zamba2-1.2b")
+PORTED = ("qwen3-32b", "mamba2-370m", "qwen2-72b", "mistral-large-123b", "zamba2-1.2b",
+          "smollm-135m", "llama4-maverick-400b-a17b", "gn-lenet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,7 +70,11 @@ def supports_shape(name: str, shape: str) -> Tuple[bool, str]:
     """Whether (arch, input-shape) is architecturally meaningful.
 
     long_500k needs sub-quadratic attention (SSM/hybrid state recurrence or
-    a sliding-window dense variant).  Returns (ok, reason-if-skipped)."""
+    a sliding-window dense variant); a module's own ``supports_shape``
+    (the CNN's) decides for it.  Returns (ok, reason-if-skipped)."""
+    m = _module(name)
+    if hasattr(m, "supports_shape"):
+        return m.supports_shape(shape)
     cfg = get_config(name)
     if shape == "long_500k":
         if cfg.family in ("ssm", "hybrid") or cfg.sliding_window is not None:

@@ -37,3 +37,14 @@ def mlp_params_from_jax(tree, device="cpu") -> Dict:
     if set(tree) != want or any(set(tree[k]) != {"w", "b"} for k in want):
         raise ValueError(f"not an MLP parameter tree: {sorted(tree)}")
     return params_from_jax(tree, device)
+
+
+def opt_state_from_jax(state, device="cpu"):
+    """A node-stacked optimizer state of the JAX package (``vmap(opt.init)``
+    or a trainer's) as the port's optimizers hold it, bitwise: SGD's ``()``
+    stays ``()``, momentum's buffer tree and AdamW's ``{"mu", "nu", "t"}``
+    (``t`` the per-node (N,) int32 step count) become tensors on
+    ``device``."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(opt_state_from_jax(s, device) for s in state)
+    return params_from_jax(state, device)

@@ -8,6 +8,10 @@ weights.
   dense (N, N) W it is ``torch.matmul``.
 * :func:`mix_sparse` / :func:`mix_dense` — the same over a node-stacked
   parameter tree.
+* :func:`mix_circulant` — static circulant d-regular gossip (the LM
+  trainer's ``ring``/``regular`` mixing), one launch of the same merge
+  kernel per leaf over cached circulant tables; :func:`mix_fully` — the
+  fully connected graph, a plain mean over nodes.
 * :func:`mix_payload` — the compressed-sharing aggregation from per-node
   (idx, val) payloads: on a :class:`SparseTopology` one launch of the
   payload-merge kernel (``kernels/scatter_gossip.py``), which reads each
@@ -26,9 +30,11 @@ neighbour contraction.  The two agree to fp32 rounding, not bitwise.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from repro_torch.core.topology import SparseTopology, sample_neighbor_slots
+from repro_torch.core.topology import SparseTopology, circulant_offsets, sample_neighbor_slots
 from repro_torch.kernels.gossip_mix import gossip_mix_rows
 from repro_torch.kernels.scatter_gossip import payload_mix_rows
 from repro_torch.utils.pytree import tree_map
@@ -60,6 +66,63 @@ def mix_sparse(stacked, topo: SparseTopology):
     """Neighbor-indexed gossip over a tree: x_i' = w_self_i x_i +
     sum_k w[i,k] x_nbr[i,k] per leaf, through the fused merge kernel."""
     return tree_map(lambda a: apply_W(topo, a).to(a.dtype), stacked)
+
+
+def mix_fully(stacked):
+    """Fully connected with uniform MH weights: every node gets the fp32
+    mean over nodes, cast back to the leaf's dtype."""
+    return tree_map(
+        lambda a: a.float().mean(0, keepdim=True).expand(a.shape).to(a.dtype), stacked)
+
+
+@functools.lru_cache(maxsize=None)
+def circulant_tables(n: int, degree: int, device: torch.device):
+    """The merge operands of the d-regular circulant graph on ``n`` nodes:
+    rows (n, K) int32, node i's slots ``[i, i+o1, i-o1, i+o2, ...]`` for the
+    offsets of ``topology.circulant_offsets`` (the antipodal offset of an
+    odd degree has one neighbour), and slot (K,) int64, the index into the
+    ``[w_self, w_off1, ...]`` weight vector that each slot takes.  Built
+    once per (n, degree, device) and kept there."""
+    shifts, slot = [0], [0]
+    for k, o in enumerate(circulant_offsets(n, degree)):
+        shifts.append(o)
+        slot.append(1 + k)
+        if 2 * o % n != 0:
+            shifts.append(-o)
+            slot.append(1 + k)
+    rows = (torch.arange(n)[:, None] + torch.tensor(shifts)[None, :]) % n
+    return (rows.to(torch.int32).contiguous().to(device),
+            torch.tensor(slot, dtype=torch.int64, device=device))
+
+
+@functools.lru_cache(maxsize=None)
+def _uniform_circulant_weights(n: int, degree: int, device: torch.device):
+    k = circulant_tables(n, degree, device)[0].shape[1]
+    return torch.full((n, k), 1.0 / (degree + 1), dtype=torch.float32, device=device)
+
+
+def mix_circulant(stacked, n: int, degree: int, weights=None):
+    """Static circulant d-regular gossip, x_i' = w_0 x_i + sum_k w_{1+k}
+    (x_{i+o_k} + x_{i-o_k}) (one term for the antipodal offset), through
+    the gather-merge kernel: one launch per leaf, reading neighbour rows by
+    index from the cached :func:`circulant_tables`.
+
+    weights: optional (1 + n_offsets,) ``[w_self, w_off1, ...]`` tensor;
+    defaults to uniform MH 1/(degree+1).  The kernel adds the slots in
+    order, the reference adds each offset's pair first: fp32 rounding
+    apart, the same sums.
+    """
+    def f(a):
+        if a.shape[0] != n:
+            raise ValueError(f"mix_circulant: leaf of {a.shape[0]} nodes, want {n}")
+        rows, slot = circulant_tables(n, degree, a.device)
+        if weights is None:
+            w = _uniform_circulant_weights(n, degree, a.device)
+        else:
+            w = weights.to(device=a.device, dtype=torch.float32)[slot].expand(n, -1).contiguous()
+        return gossip_mix_rows(a.reshape(n, -1), rows, w).reshape(a.shape)
+
+    return tree_map(f, stacked)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 
 numpy only, so the arrays are bitwise those of the JAX package's
 ``data/datasets.py`` for the same seed.  10-class 32x32x3 images
-(CIFAR-like) from class prototypes, or labels from a random teacher MLP.
+(CIFAR-like) from class prototypes, or labels from a random teacher MLP,
+and a learnable token stream (class-conditional Markov chains) for the
+language-model trainer.
 """
 from __future__ import annotations
 
@@ -75,6 +77,41 @@ class TeacherImages:
         return "images"
 
 
+@dataclasses.dataclass
+class SyntheticLM:
+    """Token stream with learnable bigram structure: each sequence follows
+    one of ``n_classes`` sparse Markov chains (its "document class", the
+    label non-IID sharding splits by)."""
+
+    n_train: int = 4_096      # number of sequences
+    n_test: int = 512
+    seq_len: int = 64
+    vocab: int = 128
+    n_classes: int = 8
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        trans = rng.dirichlet(np.full(self.vocab, 0.05), (self.n_classes, self.vocab))
+        self.trans = trans.astype(np.float64)
+        self.train_x, self.train_y = self._gen(rng, self.n_train)
+        self.test_x, self.test_y = self._gen(rng, self.n_test)
+
+    def _gen(self, rng, n):
+        cls = rng.integers(0, self.n_classes, n)
+        seqs = np.zeros((n, self.seq_len), np.int32)
+        tok = rng.integers(0, self.vocab, n)
+        for t in range(self.seq_len):
+            seqs[:, t] = tok
+            cum = np.cumsum(self.trans[cls, tok], axis=-1)
+            tok = (cum > rng.random((n, 1))).argmax(-1)
+        return seqs, cls.astype(np.int32)
+
+    @property
+    def kind(self):
+        return "lm"
+
+
 def make_dataset(name: str, **kw):
     name = name.lower()
     if name in ("cifar10", "images", "synthetic-cifar"):
@@ -87,5 +124,5 @@ def make_dataset(name: str, **kw):
         kw.setdefault("shape", (32, 32, 3))
         return SyntheticImages(**kw)
     if name in ("lm", "tokens"):
-        raise NotImplementedError("the token-stream dataset is not ported yet")
+        return SyntheticLM(**kw)
     raise ValueError(f"unknown dataset {name!r}")

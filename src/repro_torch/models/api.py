@@ -1,9 +1,9 @@
 """Unified model API across the ported families, the port of the JAX
 package's ``models/api.py``: ``init_params / forward / loss_fn /
 init_cache / prefill / decode_step`` dispatch on ``cfg.family`` (dense,
-ssm, hybrid; cnn for ``init_params`` and ``forward``).  The encdec, vlm
-and moe families raise ``NotImplementedError`` until their slices (ROADMAP
-Queue 1 item 8).
+moe, ssm, hybrid; cnn for ``init_params`` and ``forward``).  The encdec
+and vlm families raise ``NotImplementedError`` until their slices
+(ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ from repro_torch.models.transformer import (
 from repro_torch.utils.pytree import tree_size
 
 _RECURRENT = ("ssm", "hybrid")
+_TRANSFORMER = ("dense", "moe")
+_LM = _TRANSFORMER + _RECURRENT
 
 
 def _family(cfg: ModelConfig, allowed) -> str:
@@ -40,7 +42,7 @@ def _family(cfg: ModelConfig, allowed) -> str:
 def init_params(cfg: ModelConfig, gen: torch.Generator):
     """Random parameters drawn from ``gen``, on its device."""
     cfg.validate()
-    fam = _family(cfg, ("cnn", "dense", "ssm", "hybrid"))
+    fam = _family(cfg, ("cnn",) + _LM)
     if fam == "cnn":
         return _cnn.cnn_init(gen, num_classes=cfg.vocab, dtype=cfg.tdtype)
     if fam in _RECURRENT:
@@ -55,7 +57,7 @@ def _positions(B: int, S: int, device):
 def forward(params, cfg: ModelConfig, batch):
     """-> (logits, aux_loss).  ``batch["tokens"]`` (B, S) (``"images"`` for
     the cnn family)."""
-    fam = _family(cfg, ("cnn", "dense", "ssm", "hybrid"))
+    fam = _family(cfg, ("cnn",) + _LM)
     if fam == "cnn":
         logits = _cnn.cnn_apply(params, batch["images"])
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -91,17 +93,17 @@ def loss_fn(params, cfg: ModelConfig, batch):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
     """Zeroed KV / state cache."""
-    if _family(cfg, ("dense", "ssm", "hybrid")) in _RECURRENT:
+    if _family(cfg, _LM) in _RECURRENT:
         return _hybrid.hybrid_cache_init(cfg, batch, max_len, device=device)
     return transformer_cache_init(cfg, batch, max_len, device=device)
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int):
-    """The serving prefill of the dense family: one full pass that returns
-    (last-position logits (B,V), populated cache).  Decode continues from
-    index = S.  (Recurrent families prefill token by token through
-    :func:`decode_step`.)"""
-    _family(cfg, ("dense",))
+    """The serving prefill of the transformer families (dense, moe): one
+    full pass that returns (last-position logits (B,V), populated cache).
+    Decode continues from index = S.  (Recurrent families prefill token by
+    token through :func:`decode_step`.)"""
+    _family(cfg, _TRANSFORMER)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = params["embed"][tokens]
@@ -112,7 +114,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int):
 def decode_step(params, cfg: ModelConfig, cache, tokens, index: int):
     """tokens (B, 1) int; index: the int position. -> (logits (B,1,V), cache)."""
     x = params["embed"][tokens]
-    if _family(cfg, ("dense", "ssm", "hybrid")) in _RECURRENT:
+    if _family(cfg, _LM) in _RECURRENT:
         h, new_cache = _hybrid.hybrid_decode(params, cfg, cache, x, index)
     else:
         h, new_cache = transformer_decode(params, cfg, cache, x, index)
@@ -123,6 +125,17 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, index: int):
 # counting
 # ---------------------------------------------------------------------------
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` is ``meta``: inits allocate their
+    leaves on the generator's device, so they build shapes only."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 def param_count(cfg: ModelConfig) -> int:
-    """Parameters of ``init_params(cfg, ...)``, counted from a CPU init."""
-    return tree_size(init_params(cfg, torch.Generator().manual_seed(0)))
+    """Parameters of ``init_params(cfg, ...)``, counted from shapes alone
+    (an init on the ``meta`` device, as the reference counts with
+    ``jax.eval_shape``), so a 400B config counts without its memory."""
+    return tree_size(init_params(cfg, _MetaGenerator()))

@@ -14,14 +14,14 @@ def dense_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32,
     std = scale if scale is not None else fan_in**-0.5
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (t * std).to(dtype)
+    return t.mul_(std).to(dtype)  # in place: one fp32 temporary per leaf
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int], dtype=torch.float32) -> torch.Tensor:
     """Normal(0, 0.02) embedding table drawn from ``gen`` on its device."""
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     t.normal_(0.0, 1.0, generator=gen)
-    return (t * 0.02).to(dtype)
+    return t.mul_(0.02).to(dtype)
 
 
 def rms_norm(x, weight, eps: float = 1e-5):

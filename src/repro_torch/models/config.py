@@ -50,9 +50,9 @@ class ModelConfig:
     n_experts: int = 0
     n_shared_experts: int = 0
     moe_top_k: int = 1
-    d_expert: Optional[int] = None
-    moe_every: int = 1
-    first_dense: int = 0
+    d_expert: Optional[int] = None  # expert FFN hidden size (default d_ff)
+    moe_every: int = 1              # an MoE layer every k-th layer (llama4: 2)
+    first_dense: int = 0            # leading dense layers
     capacity_factor: float = 1.25
     aux_loss_coef: float = 0.01
     # -- SSM (mamba2 SSD) ------------------------------------------------
@@ -70,7 +70,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     dtype: str = "float32"          # compute/param dtype
-    remat: bool = False             # kept for config parity; the port has no trainer yet
+    remat: bool = False             # accepted, memory only: torch.utils.checkpoint cannot run
+    #                                 under the trainer's torch.func transforms, so
+    #                                 activations are kept (values unchanged)
     remat_policy: str = "full"
     scan_unroll: bool = False       # kept for config parity; layers are a Python loop
     # -- frontend stubs -----------------------------------------------------

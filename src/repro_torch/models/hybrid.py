@@ -15,7 +15,7 @@ from repro_torch.models.attention import attn_cache_init
 from repro_torch.models.common import dense_init, embed_init, rms_norm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.ssm import ssm_apply, ssm_cache_init, ssm_decode_step, ssm_init
-from repro_torch.models.transformer import block_apply, block_init, layer, stacked_init
+from repro_torch.models.transformer import block_apply, block_init, layer, stacked_init, unstack
 from repro_torch.utils.pytree import tree_map
 
 
@@ -55,13 +55,12 @@ def _mamba_blk(p, cfg: ModelConfig, x):
 
 def hybrid_apply(params, cfg: ModelConfig, x, positions):
     n_seg, per, tail = _plan(cfg)
-    for s in range(n_seg):
-        seg = layer(params["mamba_seg"], s)
-        for i in range(per):
-            x = _mamba_blk(layer(seg, i), cfg, x)
+    for seg in (unstack(params["mamba_seg"]) if n_seg else []):
+        for p in unstack(seg):
+            x = _mamba_blk(p, cfg, x)
         x, _, _ = block_apply(params["shared_attn"], cfg, x, positions)
-    for i in range(tail):
-        x = _mamba_blk(layer(params["mamba_tail"], i), cfg, x)
+    for p in (unstack(params["mamba_tail"]) if tail else []):
+        x = _mamba_blk(p, cfg, x)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), torch.zeros(
         (), dtype=torch.float32, device=x.device)
 

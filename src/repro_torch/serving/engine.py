@@ -3,8 +3,8 @@
 
 ``make_serve_step`` is the one-token decode function; ``ServingEngine``
 drives it on one device: a batch of requests, a one-shot prefill for the
-dense family (the sliding-window kernel's path under
-``attn_impl="pallas_swa"``), token-by-token prefill for the recurrent
+transformer families, dense and MoE (the sliding-window kernel's path
+under ``attn_impl="pallas_swa"``), token-by-token prefill for the recurrent
 families, then greedy or temperature decoding with EOS tracking.
 """
 from __future__ import annotations
@@ -50,7 +50,7 @@ class ServingEngine:
         position, cache)."""
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S0 = prompts.shape
-        if self.cfg.family == "dense":
+        if self.cfg.family in ("dense", "moe"):
             last, cache = prefill(self.params, self.cfg, {"tokens": prompts}, self.sc.max_len)
             return last[:, None, :], cache
         cache = init_cache(self.cfg, B, self.sc.max_len, device=self.device)

@@ -27,8 +27,11 @@ def test_datasets_bitwise(name, kw):
 
 
 def test_unported_dataset_raises():
-    with pytest.raises(NotImplementedError):
-        tds.make_dataset("lm")
+    # the token stream is ported now (tests/test_torch_trainer.py holds it
+    # bitwise); an unknown name raises as in the reference
+    assert tds.make_dataset("lm", n_train=4, n_test=2, seq_len=8).kind == "lm"
+    with pytest.raises(ValueError):
+        jds.make_dataset("nope")
     with pytest.raises(ValueError):
         tds.make_dataset("nope")
 

@@ -55,7 +55,9 @@ SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.ker
                  "repro_torch.runtime.__init__", "repro_torch.runtime.transport",
                  "repro_torch.runtime.membership", "repro_torch.runtime.peer",
                  "repro_torch.runtime.runner", "repro_torch.runtime.calibrate",
-                 "repro_torch.processes", "repro_torch.secure_aggregation")
+                 "repro_torch.processes", "repro_torch.secure_aggregation",
+                 "repro_torch.models.moe", "repro_torch.training.trainer",
+                 "repro_torch.launch.train")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

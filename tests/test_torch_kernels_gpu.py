@@ -918,3 +918,73 @@ def test_process_workers_launch_their_kernels_on_the_card(sharing):
         assert card.launches["dequantize"] == 6 + 2 * 3  # own + one frame per worker
     assert card.bytes_sent == cpu.bytes_sent
     np.testing.assert_allclose(card.final_X, cpu.final_X, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,degree,weighted", [(8, 5, False), (8, 2, True), (9, 4, False),
+                                               (6, 5, True)])
+def test_mix_circulant_on_gpu_equals_the_cpu_twin(n, degree, weighted):
+    """The trainer's circulant gossip: one gather-merge launch per leaf on
+    the card, within 1e-6 of the same call on the CPU (the plain twin)."""
+    from repro_torch.core import mixing as tmix
+
+    dev = _card()
+    g = torch.Generator().manual_seed(n * 10 + degree)
+    tree = {"a": torch.randn((n, 3, 1001), generator=g), "b": torch.randn((n, 17), generator=g)}
+    n_off = len(ttop.circulant_offsets(n, degree))
+    w = torch.rand((1 + n_off,), generator=g) if weighted else None
+    want = tmix.mix_circulant(tree, n, degree, w)
+    before = gm.gossip_mix_rows.launches
+    got = tmix.mix_circulant({k: v.to(dev) for k, v in tree.items()}, n, degree,
+                             None if w is None else w.to(dev))
+    torch.cuda.synchronize()
+    assert gm.gossip_mix_rows.launches == before + 2
+    for k in tree:
+        assert got[k].device.type == "cuda"
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topology,merges", [("regular", 1), ("fully", 0)])
+def test_train_step_launches_the_merge_once_on_gpu(topology, merges):
+    """One step of the LM trainer on the card (SmolLM smoke, N=8, the
+    5-regular circulant): one gather-merge launch for the whole flat
+    parameter buffer (none under ``fully``), no other kernel, and the
+    step's loss and parameters within 1e-4 of the same step on the CPU.
+    The SWA route is refused on the card as on the CPU."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import build_lm_batcher
+    from repro_torch.models.api import init_params
+    from repro_torch.optim import make_optimizer
+    from repro_torch.training import trainer as ttrainer
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("smollm-135m")
+    tc = ttrainer.TrainConfig(n_nodes=8, topology=topology, degree=5)
+    b = build_lm_batcher(cfg, 8, 2, 32)(0)
+    res = {}
+    for d in ("cpu", dev):
+        params = ttrainer.init_node_params(lambda g: init_params(cfg, g), 8, "cpu")
+        params = ttrainer.stack_node_params(tree_map(lambda a: a.to(d), params))
+        step = ttrainer.make_train_step(cfg, make_optimizer("sgd", 3e-2), tc)
+        wrappers = (gm.gossip_mix_rows, sg.payload_mix_rows, tq.quantize, tq.dequantize,
+                    tswa.swa_attention_gqa, tssd.ssd_chunk)
+        before = [w.launches for w in wrappers]
+        params, _, loss = step(params, (), {k: torch.as_tensor(v, device=d) for k, v in b.items()})
+        launched = [w.launches - n for w, n in zip(wrappers, before)]
+        res[str(d)] = (float(loss), [l.cpu() for l in tree_leaves(params)], launched)
+        with pytest.raises(NotImplementedError, match="cannot differentiate"):
+            swa = cfg.replace(attn_impl="pallas_swa", sliding_window=128)
+            ttrainer.make_train_step(swa, make_optimizer("sgd", 3e-2), tc)(
+                params, (), {k: torch.zeros((8, 1, 128), dtype=torch.int32, device=d)
+                             for k in ("tokens", "labels")})
+    card, cpu = res[str(dev)], res["cpu"]
+    assert card[2] == [merges, 0, 0, 0, 0, 0] and cpu[2] == [0] * 6
+    assert np.isfinite(card[0]) and abs(card[0] - cpu[0]) <= 1e-4
+    for a, c in zip(card[1], cpu[1]):
+        torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
+
