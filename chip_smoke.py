@@ -125,12 +125,21 @@ Phases (any failure raises and the exit code is non-zero):
    parameter buffer, steps/s, tokens/s, every loss, peak memory, a
    profiled step; then that merge alone against its twin and its bound;
 15. train-reference: the trainer on the card against the CPU from the
-   same parameters (SmolLM full width at 2 layers, N=6; the Llama4 MoE
-   smoke config, N=4; a fully connected run), within 1e-4, without TF32;
-16. zoo: qwen3-32b, qwen2-72b, mistral-large-123b and llama4-maverick at
-   their published widths, cut to 2 layers (llama4: one dense and one MoE
-   layer of 128 experts), bf16: a 2 x 512 prefill and 4 greedy steps
-   each, then each smoke config's greedy ids card == CPU.
+   same parameters (SmolLM full width at 2 layers, N=6; the Llama4 MoE,
+   DeepSeek-V2 MLA and Qwen2-VL M-RoPE smoke configs, N=4; a fully
+   connected run), within 1e-4, without TF32;
+16. zoo: qwen3-32b, qwen2-72b, mistral-large-123b, llama4-maverick,
+   deepseek-v2-236b and qwen2-vl-72b at their published widths, cut to 2
+   layers (llama4: one dense and one MoE layer of 128 experts; deepseek:
+   the dense first layer and one MoE layer of 160 experts), bf16: a 2 x
+   512 prefill and 4 greedy steps each; deepseek's prefill again on the
+   chunked MLA route against the naive one; qwen2-vl's prefill from stub
+   embeddings under three position streams (text, a 16 x 16 image grid,
+   text); whisper-tiny uncut (4 + 4 layers, 1500 frames): the encoder,
+   the cross cache, a 2 x 448 teacher-forced decoder pass and 32 greedy
+   steps against the real cross cache; then each smoke config's greedy
+   ids card == CPU (whisper's through ``encdec_cache_init`` and
+   ``decode_step``).
 
 The line before the last is a JSON object with one entry per TPU kernel
 (13); the last line is ``{"ok": true, "device": {...}}``.
@@ -2087,6 +2096,16 @@ TRAIN_PARAMS = 134_515_008  # SmolLM-135M's parameters (configs/smollm_135m.py)
 ZOO_B, ZOO_S, ZOO_NEW, ZOO_LAYERS = 2, 512, 4, 2
 ZOO_DENSE = ("qwen3-32b", "qwen2-72b", "mistral-large-123b")
 LLAMA4 = "llama4-maverick-400b-a17b"
+DEEPSEEK, QWEN2_VL, WHISPER = "deepseek-v2-236b", "qwen2-vl-72b", "whisper-tiny"
+ZOO_LM = ZOO_DENSE + (LLAMA4, DEEPSEEK, QWEN2_VL)
+# deepseek's chunked MLA route: the chunk, and the bound on its bf16 prefill
+# logits against the naive route's, as a share of the naive logits' largest
+# magnitude ([serve-bf16-reference]'s bound: the routes round at other points)
+MLA_CHUNK, MLA_ROUTE_TOL = 128, 5e-2
+VLM_GRID = 16  # qwen2-vl's stub image: 16 x 16 patches between two text runs
+# whisper-tiny uncut: 2 x 1500 frames, 448-token text context, 32 greedy steps
+WHISPER_B, WHISPER_TEXT, WHISPER_NEW = 2, 448, 32
+CARD = ""  # nvidia-smi's name and power limit, set by main()
 
 
 def train_args(*argv):
@@ -2199,9 +2218,12 @@ def _train_pair(argv, cfg=None):
 def phase_train_reference():
     """The trainer on the card against the trainer on the CPU from the same
     parameters: SmolLM-135M at full width and 2 layers (N=6, the 5-regular
-    circulant, seq 64, 2 steps), the Llama4-Maverick smoke config (N=4 on
-    a ring, 2 steps) and a ``--topology fully`` run (SmolLM smoke, N=8);
-    losses and parameters within 1e-4, fp32 products without TF32."""
+    circulant, seq 64, 2 steps), the Llama4-Maverick, DeepSeek-V2 and
+    Qwen2-VL smoke configs (N=4 on a ring, 2 steps each) and a
+    ``--topology fully`` run (SmolLM smoke, N=8); losses and parameters
+    within 1e-4, fp32 products without TF32.  Returns the merge launches of
+    the cases' card runs, summed (each read with the counts set to 0 just
+    before it)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.utils.pytree import tree_leaves
@@ -2213,9 +2235,14 @@ def phase_train_reference():
          ["--arch", "smollm-135m", "--nodes", "6", "--seq", "64", "--degree", "5"], smollm2),
         ("llama4-maverick smoke, N=4 ring",
          ["--arch", LLAMA4, "--nodes", "4", "--seq", "64", "--topology", "ring"], None),
+        ("deepseek-v2 smoke (MLA, MoE), N=4 ring",
+         ["--arch", DEEPSEEK, "--nodes", "4", "--seq", "64", "--topology", "ring"], None),
+        ("qwen2-vl smoke (M-RoPE), N=4 ring",
+         ["--arch", QWEN2_VL, "--nodes", "4", "--seq", "64", "--topology", "ring"], None),
         ("smollm-135m smoke, N=8 fully",
          ["--arch", "smollm-135m", "--nodes", "8", "--seq", "64", "--topology", "fully"], None),
     )
+    total = 0
     for label, argv, cfg in cases:
         card, cpu = _train_pair(argv + ["--steps", "2"], cfg)
         if torch.backends.cuda.matmul.allow_tf32:
@@ -2231,36 +2258,187 @@ def phase_train_reference():
         print(f"[train-reference] {label} ({card.cfg.n_layers} layers, d_model "
               f"{card.cfg.d_model}, topology {card.topology}): losses card {lc.tolist()} cpu "
               f"{lp.tolist()}, max |card - cpu| loss {dl}, params {dp}; card merge launches "
-              f"{merges}", flush=True)
+              f"{merges} ({CARD})", flush=True)
         if not (dl <= 1e-4 and dp <= 1e-4 and merges == want_merges):
             raise AssertionError(f"[train-reference] {label}: card and CPU disagree")
+        total += merges
         del card, cpu
         release()
+    return {"gossip_mix_rows": total}
+
+
+def vlm_positions(b, text0, grid, text1, device):
+    """(3, b, S) M-RoPE position streams (t, h, w) of a text run of
+    ``text0`` tokens, a ``grid`` x ``grid`` image (t fixed, h the row, w
+    the column) and ``text1`` more tokens from one past the image's
+    largest position: Qwen2-VL's layout."""
+    import torch
+
+    text = torch.arange(text0)
+    r = torch.arange(grid).repeat_interleave(grid)
+    c = torch.arange(grid).repeat(grid)
+    tail = torch.arange(text1) + text0 + grid
+    pos = torch.stack([torch.cat([text, torch.full((grid * grid,), text0), tail]),
+                       torch.cat([text, text0 + r, tail]), torch.cat([text, text0 + c, tail])])
+    return pos[:, None].expand(3, b, pos.shape[1]).to(device)
+
+
+def encdec_greedy(params, cfg, cache, prompt, new):
+    """Greedy decoding of the encdec family through ``decode_step`` against
+    ``cache`` (``encdec_cache_init``'s: the real cross k/v): ``prompt``
+    (B, S0) token by token, then ``new`` argmax tokens.  -> (ids (B, new),
+    the last logits)."""
+    import torch
+    from repro_torch.models.api import decode_step
+
+    S0 = prompt.shape[1]
+    for i in range(S0):
+        logits, cache = decode_step(params, cfg, cache, prompt[:, i:i + 1], i)
+    ids = []
+    for t in range(new):
+        nxt = logits[:, -1].argmax(-1)[:, None]
+        ids.append(nxt)
+        logits, cache = decode_step(params, cfg, cache, nxt, S0 + t)
+    return torch.cat(ids, 1), logits
+
+
+def zoo_mla_chunked(cfg, params, toks, naive_last):
+    """DeepSeek's prefill again on the chunked MLA route (W_uk absorbed, a
+    running softmax over latent chunks of ``MLA_CHUNK``), timed after a
+    warm-up call, against the naive route's last logits from the same
+    weights and tokens."""
+    import torch
+    from repro_torch.models.api import prefill
+
+    chunked = cfg.replace(attn_impl="chunked", attn_chunk=MLA_CHUNK)
+    prefill(params, chunked, {"tokens": toks}, ZOO_S + ZOO_NEW)  # warm-up: the second is timed
+    torch.cuda.synchronize()
+    t0 = time.time()
+    last, _ = prefill(params, chunked, {"tokens": toks}, ZOO_S + ZOO_NEW)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    naive = naive_last[:, -1].float()
+    err = float((last.float() - naive).abs().max())
+    scale = float(naive.abs().max())
+    print(f"[zoo] {cfg.name} chunked MLA (chunk {MLA_CHUNK}): prefill {ZOO_B}x{ZOO_S} {ms} ms; "
+          f"last logits max |chunked - naive| {err} against {MLA_ROUTE_TOL} x {scale} "
+          f"({CARD})", flush=True)
+    if not (bool(torch.isfinite(last).all()) and err <= MLA_ROUTE_TOL * scale):
+        raise AssertionError(f"[zoo] {cfg.name}: the chunked MLA route disagrees with the naive")
+
+
+def zoo_vlm_embeddings(cfg, params, dev):
+    """Qwen2-VL's prefill from stub-frontend embeddings (random bf16) under
+    three different position streams: a text run, a ``VLM_GRID`` squared
+    image, then text, ``ZOO_B`` x ``ZOO_S`` in all."""
+    import torch
+    from repro_torch.models.api import prefill
+
+    text0 = (ZOO_S - VLM_GRID * VLM_GRID) // 2
+    pos = vlm_positions(ZOO_B, text0, VLM_GRID, ZOO_S - VLM_GRID * VLM_GRID - text0, dev)
+    emb = torch.randn((ZOO_B, ZOO_S, cfg.d_model), generator=torch.Generator(device=dev)
+                      .manual_seed(9), device=dev).to(cfg.tdtype)
+    t0 = time.time()
+    last, _ = prefill(params, cfg, {"embeddings": emb, "positions": pos}, ZOO_S + ZOO_NEW)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    finite = bool(torch.isfinite(last).all())
+    print(f"[zoo] {cfg.name} from embeddings: prefill {ZOO_B}x{ZOO_S} {ms} ms, positions "
+          f"(t, h, w) text {text0}, image {VLM_GRID}x{VLM_GRID}, text "
+          f"{ZOO_S - VLM_GRID * VLM_GRID - text0}, last position {pos[:, 0, -1].tolist()}; "
+          f"logits finite {finite} ({CARD})", flush=True)
+    if not (finite and tuple(last.shape) == (ZOO_B, cfg.vocab)):
+        raise AssertionError(f"[zoo] {cfg.name}: prefill from embeddings failed")
+
+
+def zoo_whisper(dev):
+    """whisper-tiny as published, uncut: the encoder over ``WHISPER_B`` x
+    1500 random frames, ``encdec_cache_init``, ``decode_train`` over
+    ``WHISPER_B`` x ``WHISPER_TEXT`` tokens and ``WHISPER_NEW`` greedy
+    ``decode_step``s against the real cross cache, each timed after a
+    warm-up call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.api import init_params
+    from repro_torch.utils.pytree import tree_size
+
+    cfg = get_config(WHISPER)
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, g)
+    frames = torch.randn((WHISPER_B, cfg.enc_seq, cfg.d_model), generator=g,
+                         device=dev).to(cfg.tdtype)
+    toks = torch.as_tensor(np.random.default_rng(10).integers(
+        1, cfg.vocab, (WHISPER_B, WHISPER_TEXT)), device=dev)
+    times = {}
+    for name, fn in (
+            ("encode", lambda: encdec.encode(params, cfg, frames)),
+            ("cache_init", lambda: encdec.encdec_cache_init(params, cfg, frames, WHISPER_B,
+                                                            WHISPER_NEW + 1)),
+            ("decode_train", lambda: encdec.decode_train(params, cfg, frames, toks))):
+        fn()  # warm-up: the second call is timed
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = ((time.time() - t0) * 1e3, out)
+    enc_out, cache, logits = (times[k][1] for k in ("encode", "cache_init", "decode_train"))
+    encdec_greedy(params, cfg, encdec.encdec_cache_init(params, cfg, frames, WHISPER_B, 3),
+                  toks[:, :1], 2)  # warm-up of the one-token shapes
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ids, last = encdec_greedy(params, cfg, cache, toks[:, :1], WHISPER_NEW)
+    torch.cuda.synchronize()
+    step_ms = (time.time() - t0) * 1e3 / (WHISPER_NEW + 1)
+    finite = all(bool(torch.isfinite(t).all()) for t in (enc_out, logits, last))
+    print(f"[zoo] {WHISPER}: {cfg.n_enc_layers} + {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{tree_size(params)} parameters ({cfg.dtype}), no cut; encoder {WHISPER_B}x"
+          f"{cfg.enc_seq} frames {times['encode'][0]} ms; encdec_cache_init "
+          f"{times['cache_init'][0]} ms; decode_train {WHISPER_B}x{WHISPER_TEXT} "
+          f"{times['decode_train'][0]} ms; decode {step_ms} ms per step over "
+          f"{WHISPER_NEW + 1} steps against the real cross cache; finite {finite}; ids "
+          f"{ids.cpu().tolist()}; peak max_memory_allocated="
+          f"{torch.cuda.max_memory_allocated()} B ({CARD})", flush=True)
+    if not (finite and tuple(ids.shape) == (WHISPER_B, WHISPER_NEW)
+            and tuple(logits.shape) == (WHISPER_B, WHISPER_TEXT, cfg.vocab)
+            and tuple(cache["cross"]["k"].shape) == (cfg.n_layers, WHISPER_B, cfg.enc_seq,
+                                                     cfg.n_kv_heads, cfg.hd)):
+        raise AssertionError(f"[zoo] {WHISPER}: non-finite output or bad shapes")
 
 
 def phase_zoo():
-    """The newly ported configs on the card: qwen3-32b, qwen2-72b and
-    mistral-large-123b at their published widths, and llama4-maverick at
-    its (128 experts of d_expert 8192, one shared), each cut to 2 layers
-    (llama4: one dense and one MoE layer), bf16, random weights, freed
-    before the next: a prefill of 2 x 512 tokens and 4 greedy decode steps
-    timed, with peak memory and finiteness; then each smoke config's greedy
-    ids on the card equal to the CPU's from the same parameters."""
+    """The ported zoo configs on the card: qwen3-32b, qwen2-72b,
+    mistral-large-123b and qwen2-vl-72b at their published widths,
+    llama4-maverick at its (128 experts of d_expert 8192, one shared) and
+    deepseek-v2-236b at its (MLA; 160 experts of d_expert 1536, two
+    shared, top-6), each cut to 2 layers (llama4 and deepseek: one dense
+    and one MoE layer), bf16, random weights, freed before the next: a
+    prefill of 2 x 512 tokens and 4 greedy decode steps timed, with peak
+    memory and finiteness; deepseek's chunked MLA route against its naive
+    one; qwen2-vl's prefill from stub embeddings under three position
+    streams; whisper-tiny uncut; then each smoke config's greedy ids on
+    the card equal to the CPU's from the same parameters."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models import encdec
     from repro_torch.models.api import init_params, param_count
     from repro_torch.serving import ServeConfig, ServingEngine
     from repro_torch.utils.pytree import tree_map, tree_size
 
     dev = torch.device("cuda")
-    print(f"[zoo] cuts: depth {ZOO_LAYERS} layers for every config (published: "
-          + ", ".join(f"{a} {get_config(a).n_layers}" for a in ZOO_DENSE + (LLAMA4,))
-          + f"); {LLAMA4}'s 2 layers are one dense and one MoE layer (moe_every 2); "
-          f"random weights; prompts {ZOO_B} x {ZOO_S}, {ZOO_NEW} greedy tokens; widths, "
-          "heads, vocab, experts and dtype (bf16) as published", flush=True)
+    print(f"[zoo] cuts: depth {ZOO_LAYERS} layers for every decoder-only config (published: "
+          + ", ".join(f"{a} {get_config(a).n_layers}" for a in ZOO_LM)
+          + f"); {LLAMA4}'s 2 layers are one dense and one MoE layer (moe_every 2), "
+          f"{DEEPSEEK}'s the dense first layer and one MoE layer; {WHISPER} uncut "
+          f"({get_config(WHISPER).n_enc_layers} + {get_config(WHISPER).n_layers} layers, "
+          f"{get_config(WHISPER).enc_seq} frames); random weights; prompts {ZOO_B} x {ZOO_S}, "
+          f"{ZOO_NEW} greedy tokens; widths, heads, vocab, experts and dtype (bf16) as "
+          f"published ({CARD})", flush=True)
     prompts = np.random.default_rng(7).integers(1, 32768, (ZOO_B, ZOO_S))
-    for arch in ZOO_DENSE + (LLAMA4,):
+    for arch in ZOO_LM:
         cfg = get_config(arch).replace(n_layers=ZOO_LAYERS)
         torch.cuda.reset_peak_memory_stats()
         t = time.time()
@@ -2285,24 +2463,38 @@ def phase_zoo():
               f"parameters ({cfg.dtype}; the published config has {param_count(get_config(arch))}"
               f"), init {t_init:.2f} s; prefill {ZOO_B}x{ZOO_S} {(t1 - t0) * 1e3} ms, decode "
               f"{(t2 - t1) * 1e3 / ZOO_NEW} ms per step; logits finite {finite}; ids "
-              f"{ids.cpu().tolist()}; peak max_memory_allocated={peak} B", flush=True)
+              f"{ids.cpu().tolist()}; peak max_memory_allocated={peak} B ({CARD})", flush=True)
         if not (finite and tuple(ids.shape) == (ZOO_B, ZOO_NEW)):
             raise AssertionError(f"[zoo] {arch}: non-finite logits or bad ids")
-        del params, eng, logits, cache
+        del eng, cache
+        if arch == DEEPSEEK:
+            zoo_mla_chunked(cfg, params, toks, logits)
+        elif arch == QWEN2_VL:
+            zoo_vlm_embeddings(cfg, params, dev)
+        del params, logits
         release()
+    zoo_whisper(dev)
+    release()
     torch.backends.cuda.matmul.allow_tf32 = False
-    for arch in ZOO_DENSE + (LLAMA4,):
+    for arch in ZOO_LM + (WHISPER,):
         cfg = get_smoke_config(arch)
-        params = init_params(cfg, torch.Generator().manual_seed(1))
+        gen = torch.Generator().manual_seed(1)
+        params = init_params(cfg, gen)
         p16 = torch.as_tensor(np.random.default_rng(8).integers(1, cfg.vocab, (2, 16)))
+        frames = (torch.randn((2, cfg.enc_seq, cfg.d_model), generator=gen)
+                  if arch == WHISPER else None)
         got = {}
         for d in ("cpu", dev):
-            eng = ServingEngine(cfg, ServeConfig(batch=2, max_len=24),
-                                tree_map(lambda a: a.to(d), params), d)
+            on = tree_map(lambda a: a.to(d), params)
+            if arch == WHISPER:
+                cache = encdec.encdec_cache_init(on, cfg, frames.to(d), 2, 24)
+                got[str(d)] = encdec_greedy(on, cfg, cache, p16.to(d), 8)[0].cpu()
+                continue
+            eng = ServingEngine(cfg, ServeConfig(batch=2, max_len=24), on, d)
             got[str(d)] = eng.generate(p16.to(d), max_new=8).cpu()
         same = bool(torch.equal(got["cpu"], got[str(dev)]))
         print(f"[zoo] {arch} smoke ({cfg.n_layers} layers, d_model {cfg.d_model}, fp32): greedy "
-              f"ids card == cpu: {same}", flush=True)
+              f"ids card == cpu: {same} ({CARD})", flush=True)
         if not same:
             raise AssertionError(f"[zoo] {arch} smoke: card and CPU greedy ids differ")
 
@@ -2829,6 +3021,7 @@ def release():
 
 
 def main():
+    global CARD
     import torch
 
     if not torch.cuda.is_available():
@@ -2843,6 +3036,7 @@ def main():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
     print(f"[device] {kind}; torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    CARD = smi
 
     t = time.time()
     with ThreadPoolExecutor(len(LIBS)) as pool:  # one nvcc per source, all at once
@@ -2931,11 +3125,11 @@ def main():
     release()
     train_launches = phase_train()
     train_merge = phase_train_merge()
-    phase_train_reference()
+    train_ref_launches = phase_train_reference()
     phase_zoo()
 
     by_path.update({"entry": entry_launches, "serve": serve_launches, "forward": forward_launches,
-                    "train": train_launches})
+                    "train": train_launches, "train-reference": train_ref_launches})
     checks["gossip_mix_rows"] = checks.pop("main")
     checks["gossip_mix_rows"]["dynamic_table"] = sampled["dynamic_table"]
     checks["payload_mix_rows"]["randk_rows"] = sampled["randk_rows"]

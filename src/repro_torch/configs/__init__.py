@@ -1,11 +1,10 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
 plus the input-shape suite, the port's copy of the JAX package's
 ``configs/__init__.py``.  One module per architecture, each citing its
-source.  The port has the dense SmolLM-135M (sliding window), Qwen3-32B,
-Qwen2-72B and Mistral-Large-123B, the MoE Llama4-Maverick-400B-A17B, the
-SSM Mamba2-370M, the hybrid Zamba2-1.2B and the paper's GN-LeNet; the
-other architectures raise ``NotImplementedError`` until their model
-families are ported (ROADMAP Queue 1 item 8).
+source: the dense SmolLM-135M (sliding window), Qwen3-32B, Qwen2-72B and
+Mistral-Large-123B, the MoE Llama4-Maverick-400B-A17B and DeepSeek-V2-236B
+(MLA), the VLM Qwen2-VL-72B (M-RoPE), the encoder-decoder Whisper-tiny,
+the SSM Mamba2-370M, the hybrid Zamba2-1.2B and the paper's GN-LeNet.
 """
 from __future__ import annotations
 
@@ -27,8 +26,7 @@ ARCHS = [
     # the paper's own workload
     "gn-lenet",
 ]
-PORTED = ("qwen3-32b", "mamba2-370m", "qwen2-72b", "mistral-large-123b", "zamba2-1.2b",
-          "smollm-135m", "llama4-maverick-400b-a17b", "gn-lenet")
+PORTED = tuple(ARCHS)  # every architecture of the reference's registry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +48,6 @@ INPUT_SHAPES: Dict[str, InputShape] = {
 def _module(name: str):
     if name not in ARCHS:
         raise KeyError(f"unknown architecture {name!r}; one of {ARCHS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1 item 8, the model zoo); "
-            f"ported: {', '.join(PORTED)}")
     return importlib.import_module(
         f"repro_torch.configs.{name.replace('-', '_').replace('.', '_')}")
 

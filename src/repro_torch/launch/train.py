@@ -98,6 +98,11 @@ class LMTrainer:
             cfg = get_config(args.arch) if args.scale == "full" else get_smoke_config(args.arch)
         if cfg.family == "cnn":
             raise SystemExit("use repro_torch.quickstart for the CNN workload")
+        if cfg.family == "encdec":
+            # the reference's run fails inside its loss, on the missing "frames"
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its loss needs the encoder's "
+                             "input frames (batch['frames']), and the token-stream batcher "
+                             "gives tokens and labels only")
         self.cfg = cfg.replace(dtype="float32")  # as the reference's launch script forces
         self.device = resolve_device(args.device)
         self.n = args.nodes

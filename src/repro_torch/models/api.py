@@ -1,15 +1,17 @@
-"""Unified model API across the ported families, the port of the JAX
+"""Unified model API across the model families, the port of the JAX
 package's ``models/api.py``: ``init_params / forward / loss_fn /
 init_cache / prefill / decode_step`` dispatch on ``cfg.family`` (dense,
-moe, ssm, hybrid; cnn for ``init_params`` and ``forward``).  The encdec
-and vlm families raise ``NotImplementedError`` until their slices
-(ROADMAP Queue 1 item 8).
+moe, vlm, encdec, ssm, hybrid; cnn for ``init_params`` and ``forward``).
+The VLM's and Whisper's frontends are stubs, as in the reference:
+``batch["embeddings"]`` (with optional (3, B, S) M-RoPE
+``batch["positions"]``) and ``batch["frames"]`` stand in for them.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import cnn as _cnn
+from repro_torch.models import encdec as _encdec
 from repro_torch.models import hybrid as _hybrid
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
@@ -23,15 +25,13 @@ from repro_torch.models.transformer import (
 from repro_torch.utils.pytree import tree_size
 
 _RECURRENT = ("ssm", "hybrid")
-_TRANSFORMER = ("dense", "moe")
-_LM = _TRANSFORMER + _RECURRENT
+_TRANSFORMER = ("dense", "moe", "vlm")
+_LM = _TRANSFORMER + _RECURRENT + ("encdec",)
 
 
-def _family(cfg: ModelConfig, allowed) -> str:
+def _family(cfg: ModelConfig, allowed, what: str) -> str:
     if cfg.family not in allowed:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 8); "
-            f"ported here: {', '.join(allowed)}")
+        raise ValueError(f"{what} takes the families {', '.join(allowed)}, not {cfg.family!r}")
     return cfg.family
 
 
@@ -42,29 +42,50 @@ def _family(cfg: ModelConfig, allowed) -> str:
 def init_params(cfg: ModelConfig, gen: torch.Generator):
     """Random parameters drawn from ``gen``, on its device."""
     cfg.validate()
-    fam = _family(cfg, ("cnn",) + _LM)
+    fam = _family(cfg, ("cnn",) + _LM, "init_params")
     if fam == "cnn":
         return _cnn.cnn_init(gen, num_classes=cfg.vocab, dtype=cfg.tdtype)
     if fam in _RECURRENT:
         return _hybrid.hybrid_init(gen, cfg)
-    return transformer_init(gen, cfg)
+    if fam == "encdec":
+        return _encdec.encdec_init(gen, cfg)
+    return transformer_init(gen, cfg)  # dense / moe / vlm
 
 
-def _positions(B: int, S: int, device):
-    return torch.arange(S, device=device)[None, :].expand(B, S)
+def _positions(cfg: ModelConfig, B: int, S: int, device):
+    """0..S-1 for each row: (B, S), or the same in all three streams,
+    (3, B, S), under M-RoPE."""
+    pos = torch.arange(S, device=device)
+    if cfg.mrope_sections is not None:
+        return pos[None, None, :].expand(3, B, S)
+    return pos[None, :].expand(B, S)
+
+
+def _embedded(params, cfg: ModelConfig, batch):
+    """(x (B,S,D), positions): the VLM stub frontend's
+    ``batch["embeddings"]`` (and ``batch["positions"]`` where given), else
+    the embedded ``batch["tokens"]``."""
+    if "embeddings" in batch:
+        x = batch["embeddings"]
+        if batch.get("positions") is not None:
+            return x, batch["positions"]
+        return x, _positions(cfg, x.shape[0], x.shape[1], x.device)
+    tokens = batch["tokens"]
+    return params["embed"][tokens], _positions(cfg, *tokens.shape, tokens.device)
 
 
 def forward(params, cfg: ModelConfig, batch):
-    """-> (logits, aux_loss).  ``batch["tokens"]`` (B, S) (``"images"`` for
-    the cnn family)."""
-    fam = _family(cfg, ("cnn",) + _LM)
+    """-> (logits, aux_loss).  ``batch["tokens"]`` (B, S); ``"images"`` for
+    the cnn family, ``"frames"`` (B, enc_seq, D) besides the tokens for
+    encdec, ``"embeddings"`` (B, S, D) in place of the tokens for the VLM."""
+    fam = _family(cfg, ("cnn",) + _LM, "forward")
     if fam == "cnn":
         logits = _cnn.cnn_apply(params, batch["images"])
         return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = params["embed"][tokens]
-    positions = _positions(B, S, tokens.device)
+    if fam == "encdec":
+        logits = _encdec.decode_train(params, cfg, batch["frames"], batch["tokens"])
+        return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    x, positions = _embedded(params, cfg, batch)
     if fam in _RECURRENT:
         h, aux = _hybrid.hybrid_apply(params, cfg, x, positions)
     else:
@@ -92,30 +113,38 @@ def loss_fn(params, cfg: ModelConfig, batch):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None):
-    """Zeroed KV / state cache."""
-    if _family(cfg, _LM) in _RECURRENT:
+    """Zeroed KV / state cache (for encdec the reference's zero cache,
+    cross k/v included: ``encdec.encdec_cache_init`` computes the real
+    cross k/v from the frames)."""
+    fam = _family(cfg, _LM, "init_cache")
+    if fam in _RECURRENT:
         return _hybrid.hybrid_cache_init(cfg, batch, max_len, device=device)
+    if fam == "encdec":
+        return _encdec.encdec_cache_specs(cfg, batch, max_len, device=device)
     return transformer_cache_init(cfg, batch, max_len, device=device)
 
 
 def prefill(params, cfg: ModelConfig, batch, max_len: int):
-    """The serving prefill of the transformer families (dense, moe): one
-    full pass that returns (last-position logits (B,V), populated cache).
-    Decode continues from index = S.  (Recurrent families prefill token by
-    token through :func:`decode_step`.)"""
-    _family(cfg, _TRANSFORMER)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    x = params["embed"][tokens]
-    h, cache = transformer_prefill(params, cfg, x, _positions(B, S, tokens.device), max_len)
+    """The serving prefill of the transformer families (dense, moe, vlm):
+    one full pass over ``batch["tokens"]`` (or the VLM's
+    ``batch["embeddings"]``) that returns (last-position logits (B,V),
+    populated cache).  Decode continues from index = S.  (The recurrent
+    and encdec families prefill token by token through
+    :func:`decode_step`.)"""
+    _family(cfg, _TRANSFORMER, "prefill")
+    x, positions = _embedded(params, cfg, batch)
+    h, cache = transformer_prefill(params, cfg, x, positions, max_len)
     return lm_head(params, cfg, h[:, -1]), cache
 
 
 def decode_step(params, cfg: ModelConfig, cache, tokens, index: int):
     """tokens (B, 1) int; index: the int position. -> (logits (B,1,V), cache)."""
+    fam = _family(cfg, _LM, "decode_step")
     x = params["embed"][tokens]
-    if _family(cfg, _LM) in _RECURRENT:
+    if fam in _RECURRENT:
         h, new_cache = _hybrid.hybrid_decode(params, cfg, cache, x, index)
+    elif fam == "encdec":
+        h, new_cache = _encdec.encdec_decode(params, cfg, cache, x, index)
     else:
         h, new_cache = transformer_decode(params, cfg, cache, x, index)
     return lm_head(params, cfg, h), new_cache

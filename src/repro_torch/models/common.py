@@ -1,4 +1,4 @@
-"""Shared layers: inits, RMSNorm, RoPE, SwiGLU MLP."""
+"""Shared layers: inits, RMSNorm, RoPE / M-RoPE, SwiGLU MLP."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -44,6 +44,24 @@ def apply_rope(x, positions, theta: float):
     d = x.shape[-1]
     inv = rope_freqs(d, theta, x.device)
     ang = positions[..., None].float() * inv                       # (..., S, d/2)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def apply_mrope(x, positions3, theta: float, sections):
+    """Multimodal RoPE (qwen2-vl): three position streams (t, h, w), each
+    rotating its own band of the d/2 frequencies (stream i the next
+    ``sections[i]`` of them), in ``apply_rope``'s fp32 rotate-half layout.
+    x: (B, S, H, D); positions3: (3, B, S); sum(sections) == D // 2."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must cover {d // 2} frequencies")
+    inv = rope_freqs(d, theta, x.device)
+    # each frequency's position stream: (B, S, d/2)
+    pos = torch.cat([positions3[i][..., None].expand(*positions3.shape[1:], n)
+                     for i, n in enumerate(sections)], dim=-1).float()
+    ang = pos * inv
     sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

@@ -1,4 +1,4 @@
-"""Decoder-only transformer assembly (dense and MoE backbones), the port
+"""Decoder-only transformer assembly (dense, MoE and VLM backbones), the port
 of the JAX package's ``models/transformer.py``.
 
 Layers are stacked on a leading L axis, as in the reference (so its
@@ -157,10 +157,11 @@ def _pad_time(name: str, a, eff_len: int):
 
 
 def _stack_cache(kvs, shape):
-    """Per-layer {k, v} dicts (in layer order) stacked to ``shape``
-    leading axes, as the layers' parameters are."""
+    """Per-layer cache dicts (in layer order: {k, v}, or MLA's {ckv,
+    krope}) stacked to ``shape`` leading axes, as the layers' parameters
+    are."""
     return {name: torch.stack([kv[name] for kv in kvs]).reshape(*shape, *kvs[0][name].shape)
-            for name in ("k", "v")}
+            for name in kvs[0]}
 
 
 def transformer_prefill(params, cfg: ModelConfig, x, positions, max_len: int):
@@ -203,8 +204,9 @@ def transformer_cache_init(cfg: ModelConfig, batch: int, max_len: int, device=No
 
 def transformer_decode(params, cfg: ModelConfig, cache, x, index: int):
     """x: (B,1,D) embedded token at position ``index`` -> (h, cache), the
-    cache updated in place."""
-    positions = torch.full((x.shape[0], 1), int(index), device=x.device)
+    cache updated in place.  Under M-RoPE all three streams take ``index``."""
+    lead = (3,) if cfg.mrope_sections is not None else ()
+    positions = torch.full((*lead, x.shape[0], 1), int(index), device=x.device)
     for (_, p), (_, c) in zip(_layers(params, cfg), _layers(cache, cfg)):
         x, _, _ = block_apply(p, cfg, x, positions, cache=c, cache_index=index)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), cache

@@ -628,6 +628,14 @@ class PeerWorker:
                     continue
                 if msg["round"] < rnd:
                     continue  # pre-death stragglers of an old round
+                if msg["round"] > rnd and not self.mem.is_live(v):
+                    # v's old incarnation was retired (a rejoin hello)
+                    # while this barrier waited on it, and the new one's
+                    # first frame, of its committed start round, came in
+                    # within the same wait: keep it for that round (v
+                    # sends nothing more before every survivor is there)
+                    self.inbox[v].put_nowait(msg)
+                    break
                 if msg["round"] > rnd:
                     raise RuntimeError(
                         f"worker {self.wid}: protocol error — peer {v} "

@@ -3,9 +3,14 @@
 
 ``make_serve_step`` is the one-token decode function; ``ServingEngine``
 drives it on one device: a batch of requests, a one-shot prefill for the
-transformer families, dense and MoE (the sliding-window kernel's path
-under ``attn_impl="pallas_swa"``), token-by-token prefill for the recurrent
-families, then greedy or temperature decoding with EOS tracking.
+transformer families, dense, MoE and VLM (the sliding-window kernel's path
+under ``attn_impl="pallas_swa"``), token-by-token prefill over
+``init_cache`` for the recurrent families and encdec, then greedy or
+temperature decoding with EOS tracking.
+
+For encdec, as in the reference's engine, ``init_cache`` is the zero
+cache: the decoder attends to zero cross k/v, not to an encoded input
+(``encdec.encdec_cache_init`` and ``decode_step`` are the real path).
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ class ServingEngine:
         position, cache)."""
         prompts = torch.as_tensor(prompts, device=self.device)
         B, S0 = prompts.shape
-        if self.cfg.family in ("dense", "moe"):
+        if self.cfg.family in ("dense", "moe", "vlm"):
             last, cache = prefill(self.params, self.cfg, {"tokens": prompts}, self.sc.max_len)
             return last[:, None, :], cache
         cache = init_cache(self.cfg, B, self.sc.max_len, device=self.device)

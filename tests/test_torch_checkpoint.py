@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 
 from repro.checkpoint import load_checkpoint as jload
 from repro.checkpoint import save_checkpoint as jsave

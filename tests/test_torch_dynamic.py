@@ -10,6 +10,7 @@ parameters and metrics as ``_torch_engine_parity`` says.
 import numpy as np
 import pytest
 import torch
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 
 from _torch_engine_parity import (
     WHOLE,

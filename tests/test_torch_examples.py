@@ -11,6 +11,7 @@ import functools
 import math
 
 import pytest
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 
 from repro_torch import (churn, faults, fl_vs_dl, processes, secure_aggregation,
                          sparsification, topologies_dynamic)

@@ -57,7 +57,9 @@ SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.ker
                  "repro_torch.runtime.runner", "repro_torch.runtime.calibrate",
                  "repro_torch.processes", "repro_torch.secure_aggregation",
                  "repro_torch.models.moe", "repro_torch.training.trainer",
-                 "repro_torch.launch.train")
+                 "repro_torch.launch.train", "repro_torch.models.encdec",
+                 "repro_torch.configs.deepseek_v2_236b", "repro_torch.configs.whisper_tiny",
+                 "repro_torch.configs.qwen2_vl_72b")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -988,3 +988,113 @@ def test_train_step_launches_the_merge_once_on_gpu(topology, merges):
     for a, c in zip(card[1], cpu[1]):
         torch.testing.assert_close(a, c, rtol=1e-4, atol=1e-4)
 
+
+
+def _card_and_cpu(fn):
+    """``fn(device)`` on the card and on the CPU from the same seed-made
+    inputs (``fn`` makes its inputs on the CPU and moves them); TF32 off."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return fn(dev), fn(torch.device("cpu"))
+
+
+def _moved(tree, dev):
+    from repro_torch.utils.pytree import tree_map
+
+    return tree_map(lambda a: a.to(dev), tree)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q_lora", [None, 24])
+@pytest.mark.parametrize("route", ["naive", "chunked", "decode"])
+def test_mla_routes_on_gpu_match_the_cpu(route, q_lora):
+    """MLA's three routes (per-head k/v, the chunked absorbed form, decode
+    over the latent cache written in place) on the card within 1e-5 of the
+    CPU, in fp32; no kernel of the repo runs on any of them."""
+    from repro_torch.models import attention as tattn
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(family="dense", d_model=64, n_heads=4, n_kv_heads=4, mla=True,
+                      kv_lora_rank=32, q_lora_rank=q_lora, qk_nope_dim=16, qk_rope_dim=8,
+                      v_head_dim=16, attn_impl="chunked" if route == "chunked" else "naive",
+                      attn_chunk=8)
+
+    def run(dev):
+        g = torch.Generator().manual_seed(3)
+        p = _moved(tattn.attn_init(g, cfg), dev)
+        if route == "decode":
+            x = torch.randn((2, 1, 64), generator=g).to(dev)
+            cache = {"ckv": torch.randn((2, 12, 32), generator=g).to(dev),
+                     "krope": torch.randn((2, 12, 8), generator=g).to(dev)}
+            out, c = tattn.attn_apply(p, cfg, x, torch.full((2, 1), 5, device=dev),
+                                      cache=cache, cache_index=5)
+        else:
+            x = torch.randn((2, 32, 64), generator=g).to(dev)
+            out, c = tattn.attn_apply(p, cfg, x, torch.arange(32, device=dev)[None].expand(2, 32))
+        return [out.cpu(), c["ckv"].cpu(), c["krope"].cpu()]
+
+    before = tswa.swa_attention_gqa.launches
+    card, cpu = _card_and_cpu(run)
+    assert tswa.swa_attention_gqa.launches == before
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_whisper_decode_on_gpu_matches_the_cpu():
+    """The Whisper smoke config on the card: ``encdec_cache_init`` from
+    random frames, then 8 ``decode_step``s against the real cross cache;
+    logits within 1e-4 of the CPU's and the greedy ids equal."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api as tapi
+    from repro_torch.models import encdec as tencdec
+
+    cfg = get_smoke_config("whisper-tiny")
+
+    def run(dev):
+        g = torch.Generator().manual_seed(4)
+        params = _moved(tapi.init_params(cfg, g), dev)
+        frames = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=g).to(dev)
+        cache = tencdec.encdec_cache_init(params, cfg, frames, 2, 16)
+        tok = torch.ones((2, 1), dtype=torch.int64, device=dev)
+        logits, ids = [], []
+        for t in range(8):
+            lg, cache = tapi.decode_step(params, cfg, cache, tok, t)
+            tok = lg[:, -1].argmax(-1)[:, None]
+            logits.append(lg.cpu())
+            ids.append(tok.cpu())
+        return torch.cat(logits, 1), torch.cat(ids, 1)
+
+    (lc, ic), (lp, ip) = _card_and_cpu(run)
+    assert bool(torch.isfinite(lc).all())
+    torch.testing.assert_close(lc, lp, rtol=1e-4, atol=1e-4)
+    assert torch.equal(ic, ip)
+
+
+@pytest.mark.gpu
+def test_mrope_on_gpu_matches_the_cpu():
+    """``apply_mrope`` with three different streams (text, a 4 x 6 image
+    grid, text) on the card within 1e-6 of the CPU, and the Qwen2-VL smoke
+    config's prefill from embeddings under them within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import api as tapi
+    from repro_torch.models.common import apply_mrope
+
+    t = list(range(5)) + [5] * 24 + list(range(11, 18))
+    h = list(range(5)) + [5 + i // 6 for i in range(24)] + list(range(11, 18))
+    w = list(range(5)) + [5 + i % 6 for i in range(24)] + list(range(11, 18))
+    pos = torch.tensor([t, h, w])[:, None].expand(3, 2, len(t))
+    cfg = get_smoke_config("qwen2-vl-72b")
+
+    def run(dev):
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn((2, len(t), 4, 32), generator=g).to(dev)
+        rot = apply_mrope(x, pos.to(dev), 1e6, (8, 4, 4))
+        params = _moved(tapi.init_params(cfg, g), dev)
+        emb = torch.randn((2, len(t), cfg.d_model), generator=g).to(dev)
+        last, _ = tapi.prefill(params, cfg, {"embeddings": emb, "positions": pos.to(dev)}, 40)
+        return rot.cpu(), last.cpu()
+
+    (rc, lc), (rp, lp) = _card_and_cpu(run)
+    torch.testing.assert_close(rc, rp, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(lc, lp, rtol=1e-4, atol=1e-4)

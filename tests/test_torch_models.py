@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 from torch.func import grad, vmap
 
 from repro.models import api as japi

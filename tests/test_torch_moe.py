@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 
 from repro.configs import get_config as jget
 from repro.configs import get_smoke_config as jsmoke
@@ -42,17 +43,6 @@ from repro_torch.utils.pytree import tree_leaves
 
 NEW = ("qwen3-32b", "qwen2-72b", "mistral-large-123b", "llama4-maverick-400b-a17b", "gn-lenet")
 LLAMA4 = "llama4-maverick-400b-a17b"
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two torch threads for this file's tests: the whole suite runs in six
-    worker processes at once, and a thread team per op on every core of a
-    shared machine waits on descheduled threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def tcfg(cfg):

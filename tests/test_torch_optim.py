@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 
 from _torch_engine_parity import (
     WHOLE,

@@ -383,3 +383,34 @@ def test_rendezvous_hands_every_worker_the_peer_map():
     finally:
         srv.stop()
     assert isinstance(T.free_port(), int)
+
+
+def test_barrier_keeps_a_rejoiners_early_frame():
+    """A survivor's barrier waits on a peer whose new incarnation says
+    hello (the old one is retired mid-wait) and whose first frame, of the
+    committed start round 9, arrives within the same wait at round 5: the
+    barrier closes without the peer and keeps the frame for round 9 (the
+    reference raises a protocol error there, ROADMAP Queue 3)."""
+    from repro_torch.runtime.membership import Membership
+    from repro_torch.runtime.peer import PeerWorker
+
+    w = PeerWorker.__new__(PeerWorker)  # the barrier's state alone
+    w.wid, w.dead_timeout_s, w.watchdog_s = 0, 6.0, 120.0
+    w.mem = Membership(3, 0, 6.0)
+    w.need_from = {1: np.arange(2), 2: np.arange(2)}
+    w._pending_bye = set()
+    w._mark_gone = lambda v, rnd, fault: w.mem.declare_dead(v)
+
+    async def go():
+        w.inbox = {1: asyncio.Queue(), 2: asyncio.Queue()}
+        w.inbox[1].put_nowait({"round": 5, "sender": 1})
+        barrier = asyncio.ensure_future(w._gather(5))
+        await asyncio.sleep(0.05)  # the barrier now waits on peer 2
+        w.mem.declare_dead(2)      # a rejoin hello retires the old incarnation
+        assert w.mem.hello(2, 1) == "rejoin" and w.mem.schedule_admit(2, 1, 9, 5)
+        w.inbox[2].put_nowait({"round": 9, "sender": 2})
+        got = await asyncio.wait_for(barrier, 5.0)
+        return got, w.inbox[2].get_nowait()
+
+    got, kept = asyncio.run(go())
+    assert sorted(got) == [1] and kept["round"] == 9

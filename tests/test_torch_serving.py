@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 
 from repro.configs import get_smoke_config as jsmoke
 from repro.models import api as japi

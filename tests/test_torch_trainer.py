@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 
 from repro.checkpoint import load_checkpoint as jload
 from repro.configs import get_smoke_config as jsmoke
@@ -44,17 +45,6 @@ from repro_torch.training import trainer as ttrainer
 from repro_torch.utils.pytree import tree_leaves
 
 ARCH, N, B, SEQ, STEPS, LR = "smollm-135m", 8, 2, 32, 3, 3e-2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_torch_threads():
-    """Two torch threads for this file's tests: the whole suite runs in six
-    worker processes at once, and a thread team per op on every core of a
-    shared machine waits on descheduled threads."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):
