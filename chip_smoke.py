@@ -139,7 +139,16 @@ Phases (any failure raises and the exit code is non-zero):
    the cross cache, a 2 x 448 teacher-forced decoder pass and 32 greedy
    steps against the real cross cache; then each smoke config's greedy
    ids card == CPU (whisper's through ``encdec_cache_init`` and
-   ``decode_step``).
+   ``decode_step``);
+17. dryrun: ``repro_torch.launch.dryrun`` on the meta device at published
+   width (llama4-maverick train_4k, deepseek-v2 decode_32k: no device byte
+   allocated, their roofline rows), then four calibration cases (C1 the
+   [train] plan in fp32, C2 a SmolLM-135M bf16 naive prefill of 8 x 4096,
+   C3 a Qwen3-32B decode step at 2 layers over a 32,768-deep cache of
+   batch 8, C4 Mamba2-370M's forward over 4 x 2048 with the plain SSD):
+   the dry run's flops and bytes equal to the same counters over the step
+   on the card, its predicted peak within [0.8, 1.25] of the allocator's,
+   no roofline share above 1.05, the median step of 5.
 
 The line before the last is a JSON object with one entry per TPU kernel
 (13); the last line is ``{"ok": true, "device": {...}}``.
@@ -218,10 +227,14 @@ def time_ms(fn, iters=10, warmup=2, min_window_ms=20.0):
 
 
 def merge_bound_ms(n, k, p, item, x_rows):
-    """Least time for out[n] = sum_k w[n,k] X[rows[n,k]]: X's ``x_rows``
-    rows read once, the (n, k) index and weight tables read once, out
-    written once, against 2*k*n*p fp32 operations; the larger of the two."""
-    return bound_ms(x_rows * p * item + n * k * 8 + n * p * item, 2 * k * n * p)
+    """Least time for out[n] = sum_k w[n,k] X[rows[n,k]]: the merge's cost
+    (``gossip_mix.merge_cost``: X's ``x_rows`` rows, the (n, k) tables
+    and out, each once, against 2*k*n*p fp32 operations); the larger of
+    the two."""
+    from repro_torch.kernels.gossip_mix import merge_cost
+
+    flops, nbytes = merge_cost(n, k, p, item, x_rows)
+    return bound_ms(nbytes, flops)
 
 
 def bound_ms(nbytes, ops, rate=FP32_FLOPS):
@@ -1753,26 +1766,27 @@ SSD_SHAPES = ((32, 256, 32, 64, 128), (3, 16, 2, 8, 8))  # (G, L, H, P, N)
 
 
 def swa_bound(b, s, h, hkv, d, window, item):
-    """q, k, v read once and out written once (bytes) against 4·D flops per
-    in-window (query, key) pair (q·k and p·v), at the bf16 tensor-core rate
-    for bf16 inputs and the fp32 rate for fp32; the larger of the two."""
-    w = min(window, s)
-    pairs = w * (w + 1) // 2 + (s - w) * w   # sum over queries of min(i + 1, window)
-    return bound_ms(b * s * (2 * h + 2 * hkv) * d * item, 4 * d * pairs * b * h,
-                    BF16_FLOPS if item == 2 else FP32_FLOPS)
+    """The attention kernel's cost (``swa_attention.swa_cost``: 4·D flops
+    per in-window (query, key) pair against q, k, v and out, each once) at
+    the bf16 tensor-core rate for bf16 inputs and the fp32 rate for fp32;
+    the larger of the two."""
+    from repro_torch.kernels.swa_attention import swa_cost
+
+    flops, nbytes = swa_cost(b, s, h, hkv, d, window, item)
+    return bound_ms(nbytes, flops, BF16_FLOPS if item == 2 else FP32_FLOPS)
 
 
 def ssd_bound(g, l, h, p, n, products=1, rate=FP32_FLOPS):
-    """xdt, B, C and cum read once, y, state and decay written once (fp32
-    bytes), against two flops per multiply-add of C·Bᵀ once per chunk cell
-    over j <= i, the causal half of scores @ xdt per head and the state
-    product per head, each multiply-add taken ``products`` times, at
-    ``rate``: the fp32 rate, or the TF32 tensor rate with the kernel's
-    three products per multiply-add (3xTF32); the larger of the two."""
-    tri = l * (l + 1) // 2
-    nbytes = 4 * (2 * g * l * h * p + 2 * g * l * n + g * l * h + g * h * n * p + g * h)
-    return bound_ms(nbytes, 2 * products * (g * tri * n + g * h * tri * p + g * h * l * n * p),
-                    rate)
+    """The SSD kernel's cost (``ssd_chunk.ssd_cost``: C·Bᵀ once per chunk
+    cell, the causal scores @ xdt and the state product per head, each
+    multiply-add taken ``products`` times, against its fp32 inputs and
+    outputs, each once) at ``rate``: the fp32 rate, or the TF32 tensor
+    rate with the kernel's three products per multiply-add (3xTF32); the
+    larger of the two."""
+    from repro_torch.kernels.ssd_chunk import ssd_cost
+
+    flops, nbytes = ssd_cost(g, l, h, p, n, products)
+    return bound_ms(nbytes, flops, rate)
 
 
 def phase_lm_kernels():
@@ -2503,6 +2517,122 @@ POP_N, POP_C, MILLION_N = 100_000, 8192, 1_000_000
 POP_SHAPE, POP_HIDDEN, POP_SPREAD = (4, 4, 1), 16, 15.0  # benchmarks/bench_population.py
 
 
+# [dryrun]: the dry run at published width in this process (no device byte
+# may move), then its predictions against real steps on the card
+DRYRUN_FULL = ((LLAMA4, "train_4k"), (DEEPSEEK, "decode_32k"))
+DRYRUN_CASES = (  # (label, arch, dtype, mode, nodes, batch per node, positions, depth)
+    ("C1 train", "smollm-135m", "float32", "train", 8, 4, 128, None),
+    ("C2 prefill", "smollm-135m", "bfloat16", "prefill", 1, 8, 4096, None),
+    ("C3 decode", "qwen3-32b", "bfloat16", "decode", 1, 8, 32768, 2),
+    ("C4 forward", "mamba2-370m", "bfloat16", "forward", 1, 4, 2048, None),
+)
+DRYRUN_REPS = 5
+# predicted peak (argument + temp bytes) over the allocator's, and the most
+# a roofline share may read: a higher share means a wrong count or peak
+PEAK_BAND, SHARE_LIMIT = (0.8, 1.25), 1.05
+
+
+def phase_dryrun():
+    """``repro_torch.launch.dryrun`` on the card's machine: (a) llama4
+    train_4k and deepseek-v2 decode_32k at published width on the meta
+    device, with ``torch.cuda.memory_allocated()`` unmoved; (b) for each
+    of C1-C4 the dry run's flops, bytes and peak, then the same step on
+    the card (seeded random inputs): under the same counters (flops and
+    bytes must equal the dry run's), timed (median of 5 after a warm-up)
+    and its peak (``max_memory_allocated`` over the step, less the bytes
+    allocated before it that are not the step's arguments) within
+    PEAK_BAND of the predicted; t_compute and max(t_compute,
+    t_memory_fused) at most SHARE_LIMIT of the measured step."""
+    import statistics
+
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models.api import model_flops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.time()
+    before = torch.cuda.memory_allocated()
+    for arch, shape in DRYRUN_FULL:
+        rec = dr.run_one(arch, shape)
+        print(f"[dryrun] {arch} {shape}: traced in {rec['trace_s']} s on {rec['device']}; "
+              f"fits {rec['fits']}; {CARD}", flush=True)
+    moved = torch.cuda.memory_allocated() - before
+    print(f"[dryrun] full-width dry runs moved memory_allocated by {moved} B", flush=True)
+    if moved:
+        raise AssertionError(f"[dryrun]: the meta dry runs allocated {moved} device bytes")
+
+    launches = {}
+    failed = []
+    for label, arch, dtype, mode, n, b, s, depth in DRYRUN_CASES:
+        cfg = get_config(arch).replace(dtype=dtype)
+        if depth:
+            cfg = cfg.replace(n_layers=depth)
+        fn, args = dr.build_step(cfg, mode, n, b, s)
+        _, pred = dr.count_step(fn, args)
+        del fn, args
+        release()
+        base = torch.cuda.memory_allocated()
+        fn, args = dr.build_step(cfg, mode, n, b, s, device="cuda")
+        reset_launches()
+        fn(*args)  # warm-up
+        torch.cuda.synchronize()
+        _, got = dr.count_step(fn, args)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(DRYRUN_REPS):
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        gc.collect()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(*args)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        runs = read_launches()
+        measured_peak = peak - before + got["memory"]["argument_bytes"]
+        del fn, args
+        release()
+        step_s = statistics.median(times)
+        shape = InputShape(label, s, n * b, "prefill" if mode == "forward" else mode)
+        tokens = n * b * (1 if mode == "decode" else s)
+        meta = dict(arch=arch, mesh=f"{n}x1", n_nodes=n, n_chips=1,
+                    model_flops=model_flops(cfg, tokens, "train" if mode == "train" else "infer"))
+        rec, r = dr.roofline_record(meta, pred, cfg, shape)
+        pred_peak = pred["memory"]["argument_bytes"] + pred["memory"]["temp_bytes"]
+        share = r.t_compute / step_s
+        share_fused = max(r.t_compute, rec["roofline"]["t_memory_fused"]) / step_s
+        ratio = pred_peak / measured_peak
+        print(f"[dryrun] {label} {arch} {dtype} {mode} N={n} B={b} S={s}"
+              f"{f' depth {depth}' if depth else ''}: flops meta {pred['flops_dev']} card "
+              f"{got['flops_dev']}; bytes meta {pred['hbm_bytes_dev']} card "
+              f"{got['hbm_bytes_dev']}; peak predicted {pred_peak} B (arguments "
+              f"{pred['memory']['argument_bytes']} + temp {pred['memory']['temp_bytes']}) "
+              f"measured {measured_peak} B (ratio {ratio}); step median {step_s * 1e3} ms of "
+              f"{[t * 1e3 for t in times]}; t_compute {r.t_compute * 1e3} ms (share {share}), "
+              f"t_memory_fused {rec['roofline']['t_memory_fused'] * 1e3} ms (max share "
+              f"{share_fused}), t_memory (unfused) {r.t_memory * 1e3} ms (share "
+              f"{r.t_memory / step_s}); kernels {got['kernels']}; launches "
+              f"{ {k: v for k, v in runs.items() if v} }; {CARD}", flush=True)
+        if got["flops_dev"] != pred["flops_dev"] or got["hbm_bytes_dev"] != pred["hbm_bytes_dev"]:
+            failed.append(f"{label}: the card's counts differ from the dry run's")
+        if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+            failed.append(f"{label}: predicted peak / measured {ratio} outside {PEAK_BAND}")
+        if share > SHARE_LIMIT or share_fused > SHARE_LIMIT:
+            failed.append(f"{label}: roofline share {share}, {share_fused} above {SHARE_LIMIT}")
+        want = {k: got["kernels"]["calls"].get(k, 0) * (DRYRUN_REPS + 3) for k in runs}
+        if runs != want:
+            failed.append(f"{label}: launches {runs}, want {want}")
+        if mode == "train":
+            launches = runs
+    print(f"[dryrun] phase took {time.time() - t_phase:.1f} s", flush=True)
+    if failed:
+        raise AssertionError("[dryrun]: " + "; ".join(failed))
+    return launches
+
+
 def flat_state(eng):
     """The (N, P) fp32 parameters (decoded from compressed cold rows)."""
     import torch
@@ -3127,9 +3257,12 @@ def main():
     train_merge = phase_train_merge()
     train_ref_launches = phase_train_reference()
     phase_zoo()
+    release()
+    dryrun_launches = phase_dryrun()
 
     by_path.update({"entry": entry_launches, "serve": serve_launches, "forward": forward_launches,
-                    "train": train_launches, "train-reference": train_ref_launches})
+                    "train": train_launches, "train-reference": train_ref_launches,
+                    "dryrun": dryrun_launches})
     checks["gossip_mix_rows"] = checks.pop("main")
     checks["gossip_mix_rows"]["dynamic_table"] = sampled["dynamic_table"]
     checks["payload_mix_rows"]["randk_rows"] = sampled["randk_rows"]

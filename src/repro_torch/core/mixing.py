@@ -90,8 +90,9 @@ def circulant_tables(n: int, degree: int, device: torch.device):
         if 2 * o % n != 0:
             shifts.append(-o)
             slot.append(1 + k)
-    rows = (torch.arange(n)[:, None] + torch.tensor(shifts)[None, :]) % n
-    return (rows.to(torch.int32).contiguous().to(device),
+    rows = (torch.arange(n, device=device)[:, None]
+            + torch.tensor(shifts, device=device)[None, :]) % n
+    return (rows.to(torch.int32).contiguous(),
             torch.tensor(slot, dtype=torch.int64, device=device))
 
 

@@ -15,7 +15,10 @@ wrappers share it:
   own row with its neighbour rows.
 
 A tensor on the CPU goes to the plain twin :func:`gossip_mix_rows_ref`.  A
-CUDA tensor launches the kernel or raises: there is no fallback.  The
+CUDA tensor launches the kernel or raises: there is no fallback.  A
+``meta`` tensor is checked as a CUDA one and gets an empty result (the dry
+run's shape-only route).  While a dry-run counter is open the wrapper
+charges :func:`merge_cost` on every device (``kernels/cost.py``).  The
 kernel is compiled on its first CUDA call, never at import.
 """
 from __future__ import annotations
@@ -25,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.build import load_library
 
 MAX_K = 64  # operand slots per receiver (the kernel's shared-memory table)
@@ -67,6 +71,13 @@ def gossip_mix_rows_ref(X, rows, w):
     return acc.to(X.dtype)
 
 
+def merge_cost(n: int, k: int, p: int, item: int, x_rows: int):
+    """(flops, bytes) of out[n] = sum_k w[n,k] X[rows[n,k]]: 2·k·n·p fp32
+    operations; ``x_rows`` rows of X read once, the (n, k) index and
+    weight tables read once, out written once."""
+    return 2 * k * n * p, x_rows * p * item + n * k * 8 + n * p * item
+
+
 def _vec_width(X, out) -> int:
     """Elements per vector access: the widest power of two up to 16 bytes
     that divides both row strides and both base addresses (the kernel
@@ -89,10 +100,10 @@ def gossip_mix_rows(X, rows, w, out=None):
     Returns (N, P) in X's dtype, written into ``out`` when given.
     """
     dev = X.device
-    if dev.type == "cpu":
+    if dev.type == "cpu" and not cost.counting():
         res = gossip_mix_rows_ref(X, rows, w)
         return res if out is None else out.copy_(res)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta", "cpu"):
         raise ValueError(f"gossip_mix_rows: unsupported device {dev}")
     if X.dtype not in _ENTRY:
         raise TypeError(f"gossip_mix_rows: X must be float32 or bfloat16, got {X.dtype}")
@@ -117,6 +128,15 @@ def gossip_mix_rows(X, rows, w, out=None):
     elif (tuple(out.shape) != (n, X.shape[1]) or out.dtype != X.dtype
           or out.device != dev or out.stride(1) != 1):
         raise ValueError("gossip_mix_rows: out must be (N, P), X's dtype and device, unit column stride")
+    # the rows a call can read: X's, or the n*k identity rows
+    cost.charge("gossip_mix_rows",
+                *merge_cost(n, k, X.shape[1], X.element_size(), min(X.shape[0], n * k)))
+    if dev.type == "cpu":  # a dry-run counter is open: the twin's ops are not counted
+        with cost.uncounted():
+            out.copy_(gossip_mix_rows_ref(X, rows, w))
+        return out
+    if dev.type == "meta":
+        return out
     args = (X.data_ptr(), X.stride(0), None if rows is None else rows.data_ptr(), w.data_ptr(),
             n, k, X.shape[1], out.data_ptr(), out.stride(0), _vec_width(X, out),
             torch.cuda.current_stream(dev).cuda_stream)

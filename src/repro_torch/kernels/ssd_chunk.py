@@ -12,8 +12,11 @@ inputs through their strides: C·Bᵀ once per cell and 64-row tile, shared
 by the heads (B and C have one group), and every product on the tensor
 cores as three TF32 products of an fp32 split (3xTF32), which keeps fp32
 accuracy.  It takes L <= ``MAX_L``.  A tensor on the CPU goes to the plain
-twin :func:`ssd_chunk_ref`; a CUDA tensor launches the kernel or raises.
-The kernel is compiled on its first CUDA call, never at import.
+twin :func:`ssd_chunk_ref`; a CUDA tensor launches the kernel or raises;
+a ``meta`` tensor is checked as a CUDA one and gets empty results.  While
+a dry-run counter is open the wrapper charges :func:`ssd_cost` on every
+device (``kernels/cost.py``).  The kernel is compiled on its first CUDA
+call, never at import.
 
 :func:`ssd_scan` (the twin of the reference's ``kernels/ops.py ssd_scan``)
 adds the inter-chunk recurrence, which stays plain torch as in the
@@ -26,6 +29,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.build import load_library
 
 MAX_P = 128            # head dim the kernel takes (two 64-column passes)
@@ -50,6 +54,17 @@ def _lib():
     return lib
 
 
+def ssd_cost(g: int, l: int, h: int, p: int, n: int, products: int = 1):
+    """(flops, bytes): two flops per multiply-add of C·Bᵀ once per chunk
+    cell over j <= i, the causal half of scores @ xdt per head and the
+    state product per head, each multiply-add taken ``products`` times (3
+    for the kernel's 3xTF32); xdt, B, C and cum read once, y, state and
+    decay written once (fp32)."""
+    tri = l * (l + 1) // 2
+    flops = 2 * products * (g * tri * n + g * h * tri * p + g * h * l * n * p)
+    return flops, 4 * (2 * g * l * h * p + 2 * g * l * n + g * l * h + g * h * n * p + g * h)
+
+
 def ssd_chunk_ref(xdt, Bc, Cc, cum):
     """Plain twin: ``ref.ssd_chunk_ref`` batched over the chunk cells.
 
@@ -71,9 +86,9 @@ def ssd_chunk(xdt, Bc, Cc, cum):
     """Batched intra-chunk SSD; the signature of the reference's
     ``ops.ssd_chunk``.  All four fp32 with unit stride over their last axis
     (any other strides)."""
-    if xdt.device.type == "cpu":
+    if xdt.device.type == "cpu" and not cost.counting():
         return ssd_chunk_ref(xdt, Bc, Cc, cum)
-    if xdt.device.type != "cuda":
+    if xdt.device.type not in ("cuda", "meta", "cpu"):
         raise ValueError(f"ssd_chunk: unsupported device {xdt.device}")
     if any(t.dtype != torch.float32 for t in (xdt, Bc, Cc, cum)):
         raise TypeError("ssd_chunk: xdt, B, C and cum must be float32")
@@ -90,14 +105,25 @@ def ssd_chunk(xdt, Bc, Cc, cum):
             f"{tuple(cum.shape)} do not agree")
     if xdt.stride(3) != 1 or Bc.stride(2) != 1 or Cc.stride(2) != 1:
         raise ValueError("ssd_chunk: xdt, B and C need unit stride over their last axis")
-    lib = _lib()
-    smem = lib.ssd_chunk_smem_bytes(N, P)
-    if not 0 < P <= MAX_P or not 0 < L <= MAX_L or not 0 < smem <= MAX_SMEM:
+    if not 0 < P <= MAX_P or not 0 < L <= MAX_L or N <= 0:
         raise ValueError(f"ssd_chunk: L={L}, N={N}, P={P} outside what the kernel takes "
-                         f"(P <= {MAX_P}, L <= {MAX_L}, {smem} bytes of shared memory)")
+                         f"(P <= {MAX_P}, L <= {MAX_L})")
     y = torch.empty((G, L, H, P), dtype=torch.float32, device=xdt.device)
     st = torch.empty((G, H, N, P), dtype=torch.float32, device=xdt.device)
     dec = torch.empty((G, H), dtype=torch.float32, device=xdt.device)
+    cost.charge("ssd_chunk", *ssd_cost(G, L, H, P, N))
+    if xdt.device.type == "cpu":  # a dry-run counter is open: the twin's ops are not counted
+        with cost.uncounted():
+            for dst, src in zip((y, st, dec), ssd_chunk_ref(xdt, Bc, Cc, cum)):
+                dst.copy_(src)
+        return y, st, dec
+    if xdt.device.type == "meta":
+        return y, st, dec
+    lib = _lib()
+    smem = lib.ssd_chunk_smem_bytes(N, P)
+    if not 0 < smem <= MAX_SMEM:
+        raise ValueError(f"ssd_chunk: N={N}, P={P} need {smem} bytes of shared memory "
+                         f"(at most {MAX_SMEM})")
     with torch.cuda.device(xdt.device):
         err = lib.ssd_chunk_f32(
             xdt.data_ptr(), xdt.stride(0), xdt.stride(1), xdt.stride(2),

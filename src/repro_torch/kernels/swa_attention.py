@@ -16,8 +16,11 @@ them:
 * :func:`swa_attention` — the reference's (BH, S, D) signature.
 
 A tensor on the CPU goes to the plain twin :func:`swa_attention_gqa_ref`;
-a CUDA tensor launches the kernel or raises.  The kernel is compiled on its
-first CUDA call, never at import.
+a CUDA tensor launches the kernel or raises; a ``meta`` tensor is checked
+as a CUDA one and gets an empty result.  While a dry-run counter is open
+the wrapper charges :func:`swa_cost` on every device
+(``kernels/cost.py``).  The kernel is compiled on its first CUDA call,
+never at import.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.build import load_library
 
 BQ = BK = 128     # the reference kernel's block sizes: S and window multiples of them
@@ -56,6 +60,14 @@ def _entry(route):
     return fn
 
 
+def swa_cost(b: int, s: int, h: int, hkv: int, d: int, window: int, item: int):
+    """(flops, bytes): 4·D flops per in-window (query, key) pair (q·k and
+    p·v) against q, k, v read once and out written once."""
+    w = min(window, s)
+    pairs = w * (w + 1) // 2 + (s - w) * w   # sum over queries of min(i + 1, window)
+    return 4 * d * pairs * b * h, b * s * (2 * h + 2 * hkv) * d * item
+
+
 def swa_attention_gqa_ref(q, k, v, window: int):
     """Plain twin: ``ref.swa_attention_ref`` per head, with query head h
     reading KV head h // G.  fp32 scores and softmax, output in q's dtype."""
@@ -74,9 +86,9 @@ def swa_attention_gqa(q, k, v, window: int):
     """q (B, S, H, D), k/v (B, S, Hkv, D) with H % Hkv == 0 -> (B, S, H, D)
     in q's dtype.  fp32 or bf16, one dtype for all three, unit stride over
     D (any other strides); 1 <= D <= 128."""
-    if q.device.type == "cpu":
+    if q.device.type == "cpu" and not cost.counting():
         return swa_attention_gqa_ref(q, k, v, window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta", "cpu"):
         raise ValueError(f"swa_attention: unsupported device {q.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"swa_attention: q, k, v must share one dtype, got "
@@ -97,6 +109,13 @@ def swa_attention_gqa(q, k, v, window: int):
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("swa_attention: q, k and v need unit stride over D")
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    cost.charge("swa_attention_gqa", *swa_cost(B, S, H, Hkv, D, int(window), q.element_size()))
+    if q.device.type == "cpu":  # a dry-run counter is open: the twin's ops are not counted
+        with cost.uncounted():
+            out.copy_(swa_attention_gqa_ref(q, k, v, window))
+        return out
+    if q.device.type == "meta":
+        return out
     with torch.cuda.device(q.device):
         err = _entry(route)(
             q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),

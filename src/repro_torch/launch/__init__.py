@@ -1,1 +1,2 @@
-"""Entry points of the port's language-model trainer (``launch/train.py``)."""
+"""Entry points of the port's language-model trainer (``launch/train.py``)
+and its dry run and roofline (``launch/{mesh,specs,analytic,roofline,dryrun}.py``)."""

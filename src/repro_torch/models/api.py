@@ -1,12 +1,18 @@
 """Unified model API across the model families, the port of the JAX
 package's ``models/api.py``: ``init_params / forward / loss_fn /
 init_cache / prefill / decode_step`` dispatch on ``cfg.family`` (dense,
-moe, vlm, encdec, ssm, hybrid; cnn for ``init_params`` and ``forward``).
+moe, vlm, encdec, ssm, hybrid; cnn for ``init_params`` and ``forward``);
+``param_specs`` and ``cache_specs`` give the reference's tensor-parallel
+partition specs as plain tuples, and the counts (``param_count``,
+``active_param_count``, ``model_flops``) come from shapes alone.
 The VLM's and Whisper's frontends are stubs, as in the reference:
 ``batch["embeddings"]`` (with optional (3, B, S) M-RoPE
 ``batch["positions"]``) and ``batch["frames"]`` stand in for them.
 """
 from __future__ import annotations
+
+import math
+import re
 
 import torch
 
@@ -151,6 +157,67 @@ def decode_step(params, cfg: ModelConfig, cache, tokens, index: int):
 
 
 # ---------------------------------------------------------------------------
+# partition specs (tensor-parallel over the 'model' mesh axis)
+# ---------------------------------------------------------------------------
+
+_RULES = [
+    # (regex on dotted path, base rank, spec for the trailing base dims)
+    (r"embed$", 2, ("model", None)),
+    (r"enc_pos$", 2, (None, None)),
+    (r"lm_head$", 2, (None, "model")),
+    (r"(w_q|w_k|w_v)$", 2, (None, "model")),
+    (r"(b_q|b_k|b_v)$", 1, ("model",)),
+    (r"w_o$", 2, ("model", None)),
+    (r"w_dq$", 2, (None, None)),
+    (r"w_dkv$", 2, (None, None)),
+    (r"(w_uk|w_uv)$", 3, ("model", None, None)),
+    (r"moe\.router$", 2, (None, "model")),
+    (r"moe\.(w_gate|w_up|w_down)$", 3, ("model", None, None)),
+    (r"(w_gate|w_up)$", 2, (None, "model")),
+    (r"w_down$", 2, ("model", None)),
+    (r"in_proj$", 2, (None, "model")),
+    (r"conv_w$", 2, (None, "model")),
+    (r"conv_b$", 1, ("model",)),
+    (r"gate_norm$", 1, ("model",)),
+    (r"out_proj$", 2, ("model", None)),
+]
+
+
+def _map_with_path(fn, tree, path=""):
+    """``fn(dotted path, leaf)`` over a nested dict, keeping its structure."""
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, f"{path}.{k}" if path else str(k))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def param_specs(cfg: ModelConfig, leading=()):
+    """The partition spec of every leaf of ``init_params``' tree, as a
+    tuple of mesh-axis names or None per dim (the entries of the
+    reference's ``PartitionSpec``).  ``leading`` goes in front of every
+    spec (the node axis of the DL layer); stacked layer dims get None."""
+    def spec_for(name, leaf):
+        for pat, base_rank, base_spec in _RULES:
+            if re.search(pat, name):
+                return (*leading, *(None,) * (leaf.dim() - base_rank), *base_spec)
+        return (*leading, *(None,) * leaf.dim())
+
+    return _map_with_path(spec_for, init_params(cfg, _MetaGenerator()))
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int, leading=()):
+    """Partition specs (tuples) of the KV / state cache: k/v of rank 4 and
+    more, (..., B, S, Hkv, hd), shard their heads over 'model'; every other
+    dim is replicated."""
+    def spec_for(name, leaf):
+        if re.search(r"(\bk$|\bv$|k$|v$)", name) and leaf.dim() >= 4:
+            return (*leading, *(None,) * (leaf.dim() - 4), None, "model", None)
+        return (*leading, *(None,) * leaf.dim())
+
+    return _map_with_path(spec_for, init_cache(cfg, batch, max_len, device="meta"))
+
+
+# ---------------------------------------------------------------------------
 # counting
 # ---------------------------------------------------------------------------
 
@@ -168,3 +235,24 @@ def param_count(cfg: ModelConfig) -> int:
     (an init on the ``meta`` device, as the reference counts with
     ``jax.eval_shape``), so a 400B config counts without its memory."""
     return tree_size(init_params(cfg, _MetaGenerator()))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: only the top-k routed experts'
+    share of each expert leaf), counted from shapes alone."""
+    total = 0
+
+    def walk(name, leaf):
+        nonlocal total
+        n = math.prod(leaf.shape)
+        if re.search(r"moe\.(w_gate|w_up|w_down)$", name):
+            n = int(n * cfg.moe_top_k / cfg.n_experts)
+        total += n
+
+    _map_with_path(walk, init_params(cfg, _MetaGenerator()))
+    return total
+
+
+def model_flops(cfg: ModelConfig, tokens: int, mode: str = "train") -> float:
+    """MODEL_FLOPS = 6·N·D (train) / 2·N·D (inference), N = active params."""
+    return (6.0 if mode == "train" else 2.0) * active_param_count(cfg) * tokens

@@ -10,9 +10,11 @@ stacked on the leading axis:
     params  = gossip(params)            # ring / regular / fully / dense
 
 The node-stacked parameters are views of one flat (N, P) buffer
-(:func:`stack_node_params`), as ``RoundEngine`` holds its state, so the
-circulant gossip of a whole step is one launch of the gather-merge kernel
-(``core/mixing.py mix_circulant``) and the update is written in place.
+(:func:`stack_node_params`; one per dtype where the leaves mix dtypes, as
+an SSM's fp32 decay beside bf16 weights), as ``RoundEngine`` holds its
+state, so the circulant gossip of a whole step is one launch of the
+gather-merge kernel per buffer (``core/mixing.py mix_circulant``) and the
+update is written in place.
 
 The reference cannot differentiate its two LM Pallas kernels (the
 sliding-window attention and the SSD chunk), so its step fails wherever
@@ -25,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import List, Optional
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -91,17 +93,33 @@ def refuse_kernel_routes(cfg: ModelConfig, seq_len: int) -> None:
 # the flat node-stacked parameter buffer
 # ---------------------------------------------------------------------------
 
+def _views(bufs, like):
+    """``like``'s tree of views into ``bufs`` (dtype -> (N, P_d) buffer):
+    each leaf cut from its dtype's buffer, in sorted-key order."""
+    off = dict.fromkeys(bufs, 0)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        X = bufs[t.dtype]
+        k = math.prod(t.shape)
+        view = X[:, off[t.dtype]:off[t.dtype] + k].reshape(X.shape[0], *t.shape)
+        off[t.dtype] += k
+        return view
+
+    return walk(like)
+
+
 def stack_node_params(params):
-    """A node-stacked tree copied into one flat (N, P) buffer of the
-    leaves' common dtype: the returned tree's leaves are views of it, in
-    sorted-key order (:func:`flat_buffer` finds it again)."""
+    """A node-stacked tree copied into one flat (N, P_d) buffer per leaf
+    dtype (one buffer where the leaves share a dtype): the returned tree's
+    leaves are views of them, each buffer holding its dtype's leaves in
+    sorted-key order (:func:`flat_buffers` finds them again)."""
     leaves = tree_leaves(params)
-    dtypes = {l.dtype for l in leaves}
-    if len(dtypes) != 1:
-        raise ValueError(f"stack_node_params: leaves of several dtypes {sorted(map(str, dtypes))}")
     n = leaves[0].shape[0]
-    X = torch.cat([l.reshape(n, -1) for l in leaves], 1)
-    return tree_unvector(X, tree_map(lambda a: a[0], params))
+    bufs = {dt: torch.cat([l.reshape(n, -1) for l in leaves if l.dtype == dt], 1)
+            for dt in dict.fromkeys(l.dtype for l in leaves)}
+    return _views(bufs, tree_map(lambda a: a[0], params))
 
 
 def init_node_params(init_fn, n: int, device, seed: int = 0):
@@ -122,21 +140,24 @@ def init_node_params(init_fn, n: int, device, seed: int = 0):
     return tree_unvector(X, template)
 
 
-def flat_buffer(params) -> Optional[torch.Tensor]:
-    """The (N, P) buffer whose views ``params``' leaves are, in sorted-key
-    order and back to back, or None where they are not."""
-    leaves = tree_leaves(params)
-    X = leaves[0]._base
-    if X is None or X.dim() != 2 or not X.is_contiguous():
-        return None
-    off = 0
-    for l in leaves:
-        k = math.prod(l.shape[1:])
-        if (l._base is not X or l.shape[0] != X.shape[0]
-                or l.data_ptr() != X.data_ptr() + off * X.element_size()):
+def flat_buffers(params) -> Optional[List[torch.Tensor]]:
+    """The (N, P_d) buffers whose views ``params``' leaves are, one per
+    dtype in the order the dtypes first come in sorted-key order, each
+    holding its leaves back to back; or None where they are not."""
+    bufs, off = {}, {}
+    for l in tree_leaves(params):
+        X = l._base
+        if X is None or X.dim() != 2 or not X.is_contiguous() or X.dtype != l.dtype:
             return None
-        off += k
-    return X if off == X.shape[1] else None
+        if bufs.setdefault(l.dtype, X) is not X:
+            return None
+        o = off.get(l.dtype, 0)
+        if l.shape[0] != X.shape[0] or l.data_ptr() != X.data_ptr() + o * X.element_size():
+            return None
+        off[l.dtype] = o + math.prod(l.shape[1:])
+    if any(off[dt] != X.shape[1] for dt, X in bufs.items()):
+        return None
+    return list(bufs.values())
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +173,7 @@ def make_node_train_step(cfg: ModelConfig, optimizer: Optimizer, tc: TrainConfig
     node_grad = vmap(grad_and_value(lambda p, b: model_loss_fn(p, cfg, b)))
 
     def step(params, opt_state, batch):
-        refuse_kernel_routes(cfg, batch["tokens"].shape[-1])
+        refuse_kernel_routes(cfg, batch["labels"].shape[-1])
         grads, losses = node_grad(params, batch)
         if tc.grad_clip:
             grads = clip_by_global_norm(grads, tc.grad_clip)
@@ -168,20 +189,23 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, tc: TrainConfig):
     W=None) -> (params, opt_state, mean loss over nodes)``.  batch leaves
     have shape (N, B, S); W is the (N, N) mixing matrix of
     ``topology="dense"``.  ``params`` whose leaves are not yet views of
-    one flat buffer are copied into one first; the returned ``params`` are
-    views of the mixed buffer (a fresh one for the circulant and dense
-    mixings, the same one, mixed in place, for ``fully``)."""
+    flat buffers (one per dtype) are copied into them first; the returned
+    ``params`` are views of the mixed buffers (fresh ones for the
+    circulant and dense mixings, the same ones, mixed in place, for
+    ``fully``)."""
     node_step = make_node_train_step(cfg, optimizer, tc)
 
     def train_step(params, opt_state, batch, W=None):
-        if flat_buffer(params) is None:
+        if flat_buffers(params) is None:
             params = stack_node_params(params)
         params, opt_state, losses = node_step(params, opt_state, batch)
-        X = flat_buffer(params)
-        mixed = _gossip(X, tc, W=W)
+        bufs = flat_buffers(params)
+        mixed = [_gossip(X, tc, W=W) for X in bufs]
         if tc.topology == "fully":
-            X.copy_(mixed)
+            for X, m in zip(bufs, mixed):
+                X.copy_(m)
             return params, opt_state, losses.mean()
-        return tree_unvector(mixed, tree_map(lambda a: a[0], params)), opt_state, losses.mean()
+        like = tree_map(lambda a: a[0], params)
+        return _views({m.dtype: m for m in mixed}, like), opt_state, losses.mean()
 
     return train_step

@@ -59,7 +59,10 @@ SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.ker
                  "repro_torch.models.moe", "repro_torch.training.trainer",
                  "repro_torch.launch.train", "repro_torch.models.encdec",
                  "repro_torch.configs.deepseek_v2_236b", "repro_torch.configs.whisper_tiny",
-                 "repro_torch.configs.qwen2_vl_72b")
+                 "repro_torch.configs.qwen2_vl_72b", "repro_torch.launch.mesh",
+                 "repro_torch.launch.specs", "repro_torch.launch.analytic",
+                 "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+                 "repro_torch.kernels.cost")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -1098,3 +1098,69 @@ def test_mrope_on_gpu_matches_the_cpu():
     (rc, lc), (rp, lp) = _card_and_cpu(run)
     torch.testing.assert_close(rc, rp, rtol=1e-6, atol=1e-6)
     torch.testing.assert_close(lc, lp, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_merge_meta_route_matches_the_cuda_route_on_gpu(dtype):
+    """The merge wrapper on ``meta`` tensors gives the CUDA route's shape
+    and dtype, launches nothing, and charges the same cost
+    (``merge_cost`` over the rows the call can read) as the card's call."""
+    from repro_torch.kernels import cost
+
+    dev = _card()
+    n, p = 16, 4099
+    rows, w = ttop.SparseTopology.regular_circulant(n, 5).to(dev).merge_tables()
+    X = torch.randn((n, p), device=dev).to(getattr(torch, dtype))
+    with cost.charging() as on_card:
+        out = gm.gossip_mix_rows(X, rows, w)
+    before = gm.gossip_mix_rows.launches
+    with cost.charging() as on_meta:
+        got = gm.gossip_mix_rows(X.to("meta"), rows.to("meta"), w.to("meta"))
+    assert gm.gossip_mix_rows.launches == before
+    assert got.device.type == "meta" and got.shape == out.shape and got.dtype == out.dtype
+    want = gm.merge_cost(n, rows.shape[1], p, X.element_size(), n)
+    assert (on_card.flops, on_card.bytes) == (on_meta.flops, on_meta.bytes) == want
+    assert on_card.calls == on_meta.calls == {"gossip_mix_rows": 1}
+
+
+def _smoke_train_on_card(dev):
+    """(dry-run readings, card readings, the card's measured peak) of the
+    smollm smoke config's train step, N=8 (the merge on the path)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun as dr
+
+    cfg = get_smoke_config("smollm-135m")
+    fn, args = dr.build_step(cfg, "train", 8, 2, 16)
+    _, pred = dr.count_step(fn, args)
+    fn, args = dr.build_step(cfg, "train", 8, 2, 16, device=dev)
+    fn(*args)
+    torch.cuda.synchronize()
+    _, got = dr.count_step(fn, args)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    torch.cuda.synchronize()
+    return pred, got, torch.cuda.max_memory_allocated() - before + got["memory"]["argument_bytes"]
+
+
+@pytest.mark.gpu
+def test_dry_run_counts_equal_a_smoke_train_step_on_gpu():
+    """The dry run's flops, bytes and kernel charges on ``meta`` equal the
+    same counters over the smoke train step on the card."""
+    pred, got, _ = _smoke_train_on_card(_card())
+    assert got["flops_dev"] == pred["flops_dev"]
+    assert got["hbm_bytes_dev"] == pred["hbm_bytes_dev"]
+    assert got["kernels"] == pred["kernels"] and pred["kernels"]["calls"] == {"gossip_mix_rows": 1}
+    assert got["memory"] == pred["memory"]
+
+
+@pytest.mark.gpu
+def test_dry_run_peak_of_a_smoke_train_step_on_gpu():
+    """The predicted peak (argument + temp bytes) of the smoke train step
+    lies in [0.8, 1.25] of the allocator's peak over the step on the card
+    (less the bytes allocated before it that are not its arguments)."""
+    pred, _, measured = _smoke_train_on_card(_card())
+    ratio = (pred["memory"]["argument_bytes"] + pred["memory"]["temp_bytes"]) / measured
+    assert 0.8 <= ratio <= 1.25, ratio
