@@ -148,7 +148,20 @@ Phases (any failure raises and the exit code is non-zero):
    batch 8, C4 Mamba2-370M's forward over 4 x 2048 with the plain SSD):
    the dry run's flops and bytes equal to the same counters over the step
    on the card, its predicted peak within [0.8, 1.25] of the allocator's,
-   no roofline share above 1.05, the median step of 5.
+   no roofline share above 1.05, the median step of 5;
+18. shard: the node axis over 4 ranks sharing the card through
+   ``repro_torch.launch.shard`` (gloo; every transfer staged through pinned
+   host memory and counted): (a) the main path at full width (N=1024,
+   GN-LeNet width 32, 3 rounds) with shard_backend 'gather' and 'ppermute'
+   (each bitwise the single-device card run whose local steps are batched
+   in the ranks' blocks), one merge launch per rank per round, the round
+   walls and the bytes sent and staged per rank against the schedule's
+   prediction; (b)
+   [shard-reference]: secure and top-k int8 payloads over ppermute at N=16,
+   the ranks on the card against the ranks on the CPU within 1e-4; (c) the
+   trainer's 'shard_map' and 'quant' mixings, one node per rank (SmolLM-135M
+   smoke, 2 steps), against the single-process step on the card within
+   1e-5.
 
 The line before the last is a JSON object with one entry per TPU kernel
 (13); the last line is ``{"ok": true, "device": {...}}``.
@@ -3140,6 +3153,388 @@ def phase_processes():
     return launches, timing
 
 
+# the [shard] phase: the node axis over SHARD_S gloo ranks on the one card
+SHARD_S, SHARD_ROUNDS = 4, 3
+SHARD_REF_CFG = dict(topology="regular", degree=MAIN_DEG, n_nodes=16, chunk_rounds=4,
+                     eval_every=4, local_steps=1, batch_size=4)
+SHARD_REF_CASES = {  # [shard-reference]: (knobs, launches per round on the card)
+    "secure-ppermute": (dict(secure=True, shard_backend="ppermute"),
+                        {"secure_mask_apply_rows_keyed": 1, "gossip_mix_rows": 1}),
+    "topk-int8-ppermute": (dict(sharing="topk", budget=0.1, payload="on", payload_quant=True,
+                                shard_backend="ppermute"),
+                           {"abs_histogram_rows": 2, "quantize": 1, "dequantize": 1,
+                            "payload_mix_rows": 1}),
+}
+SHARD_TRAIN = dict(arch="smollm-135m", n=SHARD_S, degree=3, batch=2, seq=32, steps=2, lr=3e-2)
+
+
+def consensus_loss(p, x, y):
+    """tests/test_sharded_engine.py's model: 16 parameters pulled toward
+    the batch mean."""
+    import torch
+
+    t = x.reshape(x.shape[0], -1).mean(0)
+    return torch.mean((p["w"].reshape(-1, t.shape[0]) - t) ** 2)
+
+
+def consensus_acc(p, x, y):
+    return -consensus_loss(p, x, y)
+
+
+def consensus_engine(device, init, **knobs):
+    from repro_torch import DLConfig, RoundEngine
+    from repro_torch.data import NodeBatcher, make_dataset, sharding_partition
+    from repro_torch.optim import make_optimizer
+
+    ds = make_dataset("cifar10", n_train=256, n_test=32, shape=(2, 2, 1), sigma=2.0)
+    cfg = {**SHARD_REF_CFG, **knobs}
+    parts = sharding_partition(ds.train_y, cfg["n_nodes"], 2, seed=0)
+    batcher = NodeBatcher(ds.train_x, ds.train_y, parts, batch_size=4, seed=0)
+    return RoundEngine(DLConfig(**cfg), None, consensus_loss, consensus_acc,
+                       make_optimizer("sgd", 0.05), batcher, init_params=init, device=device)
+
+
+def blocked_local_train(steps, block):
+    """Make ``steps.local_train`` (plain SGD, full participation) train the
+    nodes in row blocks of ``block``, as a sharded rank of ``block`` rows
+    batches them: cuDNN picks its grouped convolutions' algorithm by the
+    number of node groups, so one ``vmap`` over 1024 nodes rounds
+    otherwise than four over 256 (PERF.md §6)."""
+    from repro_torch.utils.pytree import tree_map
+
+    inner = steps.local_train
+
+    def local_train(params, opt_state, bx, by, active=None, rows=None, shard=None):
+        if opt_state != () or active is not None or rows is not None or shard is not None:
+            raise ValueError("blocked_local_train takes the plain SGD full-participation step")
+        for lo in range(0, bx.shape[1], block):
+            inner(tree_map(lambda a: a[lo:lo + block], params), opt_state,
+                  bx[:, lo:lo + block], by[:, lo:lo + block])
+        return params, opt_state
+
+    steps.local_train = local_train
+
+
+def _shard_rank_main_path(backend, ref, device):
+    """One rank's part (a): the main path at full width over the ranks,
+    each round timed alone; this rank's parameter rows against the
+    single-device run's (``ref``, an .npy read by rows)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    eng = main_path_engine(MAIN_N, 32, 32768, rounds=SHARD_ROUNDS, chunk=1, eval_every=100,
+                           device=device, shard_devices=SHARD_S, shard_backend=backend)
+    sh, p = eng.shard, eng.n_params
+    b = sh.block
+    if backend == "gather":
+        predicted = (SHARD_S - 1) * b * p * 4
+        moved_rows = (b, MAIN_N)            # rows copied out, rows copied back
+    else:
+        plan = eng._mix_static.sched.plan(sh.rank, b)
+        predicted = len(plan.send_rows) * p * 4
+        moved_rows = (len(plan.send_rows), plan.n_recv)
+    walls, sent, staged = [], [], []
+    span = eng.scheduler.run_span
+
+    def timed_span(start, n):
+        torch.cuda.synchronize()
+        s0, g0, t0 = sh.sent_bytes, sh.staged_bytes, time.time()
+        span(start, n)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+        sent.append(sh.sent_bytes - s0)
+        staged.append(sh.staged_bytes - g0)
+
+    eng.scheduler.run_span = timed_span
+    torch.cuda.synchronize()
+    reset_launches()
+    hist = eng.run(log=False)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    X = eng.X.cpu().numpy()
+    rows = slice(sh.rank * b, (sh.rank + 1) * b)
+    ref_rows = np.load(ref, mmap_mode="r")[rows]
+    mine = dict(rank=sh.rank, device=str(eng.X.device), walls=walls, sent=sent, staged=staged,
+                predicted=predicted, pmax_bytes=4, moved_rows=moved_rows, launches=launches,
+                max_abs_err=float(np.abs(X - ref_rows).max()),
+                bitwise=bool(np.array_equal(X, ref_rows)), finite=bool(np.isfinite(X).all()))
+    ranks = [None] * SHARD_S
+    dist.all_gather_object(ranks, mine)
+    out = dict(ranks=ranks, bytes_sent=eng.bytes_sent, sim_time_s=eng.sim_time_s,
+               acc=[h["acc_mean"] for h in hist], rounds=[h["round"] for h in hist], p=p, b=b)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shard_rank_reference(device):
+    """One rank's part (b): the consensus engine sharded over the ranks on
+    the card and again on the CPU (gloo moves CPU tensors as they are)
+    from the same numpy parameters, with the card run's launches."""
+    import numpy as np
+
+    init = {"w": np.random.default_rng(0).normal(size=(16, 16)).astype(np.float32)}
+    out = {}
+    for name, (knobs, _) in SHARD_REF_CASES.items():
+        runs = {}
+        for role, dev in (("card", device), ("cpu", "cpu")):
+            eng = consensus_engine(dev, init, shard_devices=SHARD_S, **knobs)
+            if knobs.get("sharing") == "topk":  # the card's selector on the CPU too
+                eng.sharing = eng.steps.sharing = dataclasses.replace(eng.sharing,
+                                                                     selector="hist")
+            reset_launches()
+            eng.run(rounds=8, log=False)
+            runs[role] = dict(X=eng.full_state().cpu().numpy(), bytes=eng.bytes_sent,
+                             rounds=[h["round"] for h in eng.history],
+                             acc=[h["acc_mean"] for h in eng.history], launches=read_launches(),
+                             device=str(eng.X.device))
+        out[name] = runs
+    return out
+
+
+def _shard_rank_trainer(device):
+    """One rank's part (c): the sharded LM trainer, one node per rank, for
+    'shard_map' and 'quant'; returns the losses and the gathered
+    parameters of each."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.mixing import NodeShard
+    from repro_torch.optim import make_optimizer
+    from repro_torch.training import trainer
+    from repro_torch.utils.pytree import tree_map
+
+    c = SHARD_TRAIN
+    cfg = get_smoke_config(c["arch"])
+    sh = NodeShard.of_group(c["n"])
+    params0, batches = shard_train_inputs(torch.device(device))
+    out = {}
+    for mode in ("shard_map", "quant"):
+        tc = trainer.TrainConfig(n_nodes=c["n"], topology="regular", degree=c["degree"],
+                                 mixing_impl=mode, grad_clip=1.0)
+        opt = make_optimizer("sgd", c["lr"])
+        params = tree_map(lambda a: sh.local(a).clone(), params0)
+        state = opt.init(params)
+        step = trainer.make_train_step(cfg, opt, tc, shard=sh)
+        reset_launches()
+        losses = []
+        for bt in batches:
+            params, state, loss = step(params, state, tree_map(sh.local, bt))
+            losses.append(float(loss))
+        launches = read_launches()
+        out[mode] = (losses, tree_map(lambda a: sh.gather(a).cpu(), params), launches)
+    return out
+
+
+def shard_train_inputs(device):
+    """[shard]'s trainer inputs: the SmolLM smoke config's parameters for
+    SHARD_TRAIN["n"] nodes (node 0's seeded draw plus per-node noise) and
+    its batches, made on the CPU from seeds and moved to ``device``."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.train import build_lm_batcher
+    from repro_torch.models.api import init_params
+    from repro_torch.utils.pytree import tree_map
+
+    c = SHARD_TRAIN
+    cfg = get_smoke_config(c["arch"])
+    base = init_params(cfg, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    params = tree_map(lambda a: (a[None] + 0.02 * torch.randn((c["n"],) + tuple(a.shape),
+                                                              generator=gen)).to(a.dtype),
+                      base)
+    batch_fn = build_lm_batcher(cfg, c["n"], c["batch"], c["seq"])
+    batches = [tree_map(torch.as_tensor, batch_fn(s)) for s in range(c["steps"])]
+    return (tree_map(lambda a: a.to(device), params),
+            [tree_map(lambda a: a.to(device), bt) for bt in batches])
+
+
+def shard_rank(ref, device):
+    """Every rank of [shard]: parts (a), (b) and (c) in turn; rank 0
+    returns them all."""
+    return {"gather": _shard_rank_main_path("gather", ref, device),
+            "ppermute": _shard_rank_main_path("ppermute", ref, device),
+            "reference": _shard_rank_reference(device),
+            "trainer": _shard_rank_trainer(device)}
+
+
+def plain_compressed_mix(stacked, degree):
+    """The single-process reference of the trainer's 'quant' mixing over
+    a node-stacked tree: per node and leaf, rows of min(2^20, size)
+    elements, int8 codes and a scale per row (the port's codec), and
+    x_i' = x_i + sum over the circulant's links of w * (deq_j - x_i)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.compression import dequantize_int8, quantize_int8
+    from repro_torch.core.mixing import _circulant_links
+    from repro_torch.utils.pytree import tree_map
+
+    def leaf(a):
+        n = a.shape[0]
+        size = a[0].numel()
+        R = min(1 << 20, size)
+        rows = F.pad(a.reshape(n, -1).float(), (0, (-size) % R)).reshape(n, -1, R)
+        deq = dequantize_int8(*quantize_int8(rows))
+        out = []
+        for i in range(n):
+            links, _ = _circulant_links(n, degree, i)
+            acc = rows[i].clone()
+            for _, frm, w in links:
+                acc = acc + w * (deq[frm] - rows[i])
+            out.append(acc.reshape(-1)[:size].reshape(a.shape[1:]))
+        return torch.stack(out).to(a.dtype)
+
+    return tree_map(leaf, stacked)
+
+
+def phase_shard():
+    """[shard]: the node axis over SHARD_S=4 ranks on the one H100, through
+    ``repro_torch.launch.shard`` (gloo: every rank on the card, each
+    transfer staged through pinned host memory and counted).
+
+    (a) the main path at full width: N=1024, GN-LeNet width 32, 5-regular,
+    full sharing, 3 rounds with shard_backend 'gather' and 'ppermute' from
+    the single-device card run's initial parameters (the same seeded
+    per-node draws; that run's local steps batched in the ranks' blocks of
+    256 nodes, see ``blocked_local_train``); both bitwise that run's
+    parameters (ppermute exchanges by the rebalanced table's schedule and
+    merges in the table's own slot order), with that run's bytes, and its
+    sim time within 1e-4; one merge
+    launch per rank per round; per rank the round walls, the
+    bytes sent and staged per round against the schedule's prediction.
+    (b) [shard-reference]: N=16, the reference's consensus model, secure
+    and top-k int8 payloads over ppermute (the histogram selector on both
+    devices), the ranks on the card against the ranks on the CPU within
+    1e-4.
+    (c) the trainer's 'shard_map' and 'quant' mixings, one node per rank
+    (SmolLM-135M smoke, 2 steps) against the single-process step on the
+    card ('roll'; the plain compressed mix) within 1e-5 (int8 code flips
+    at rounding boundaries bounded as in tests/test_torch_shard_trainer)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import shard
+    from repro_torch.optim import make_optimizer
+    from repro_torch.training import trainer
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    tmp = tempfile.mkdtemp(prefix="shard_smoke_")
+    t = time.time()
+    one = main_path_engine(MAIN_N, 32, 32768, rounds=SHARD_ROUNDS, chunk=1, eval_every=100,
+                           device=None)
+    blocked_local_train(one.steps, MAIN_N // SHARD_S)
+    torch.cuda.synchronize()
+    t_one = time.time()
+    one.run(log=False)
+    torch.cuda.synchronize()
+    print(f"[shard] single-device run (local steps in blocks of {MAIN_N // SHARD_S} nodes): "
+          f"N={MAIN_N} P={one.n_params} {SHARD_ROUNDS} rounds in {time.time() - t_one:.3f} s "
+          f"(set-up {t_one - t:.3f} s); bytes_sent {one.bytes_sent} sim_time_s "
+          f"{one.sim_time_s}", flush=True)
+    ref = str(Path(tmp) / "X.npy")
+    np.save(ref, one.X.cpu().numpy())
+    want = dict(bytes_sent=one.bytes_sent, sim_time_s=one.sim_time_s,
+                acc=[h["acc_mean"] for h in one.history],
+                rounds=[h["round"] for h in one.history])
+    del one
+    release()
+    t = time.time()
+    res = shard.run(shard_rank, SHARD_S, ref, device="cuda", timeout=900)
+    print(f"[shard] {SHARD_S} ranks (gloo, one card) ran parts (a)-(c) in {time.time() - t:.1f} s "
+          f"(spawn and set-up included)", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    ok = True
+    launches = {}
+    for backend in ("gather", "ppermute"):
+        r = res[backend]
+        path = f"shard-{backend}"
+        for rk in r["ranks"]:
+            exp_staged = [(rk["moved_rows"][0] + rk["moved_rows"][1]) * r["p"] * 4 + 8] * len(
+                rk["staged"])
+            print(f"[{path}] rank {rk['rank']} on {rk['device']}: round walls {rk['walls']} s; "
+                  f"bytes sent per round {rk['sent']} (schedule: {rk['predicted']} for the mix "
+                  f"+ {rk['pmax_bytes']} for the round time's pmax); staged through the host "
+                  f"per round {rk['staged']} (rows out, rows in {rk['moved_rows']}: "
+                  f"{exp_staged[0]} B); launches {rk['launches']}; max |X - X_one| "
+                  f"{rk['max_abs_err']}; bitwise the single-device run: {rk['bitwise']}",
+                  flush=True)
+            want_launches = {**{k: 0 for k in rk["launches"]}, "gossip_mix_rows": SHARD_ROUNDS}
+            good = (rk["launches"] == want_launches and rk["finite"]
+                    and rk["device"].startswith("cuda")
+                    and all(s == rk["predicted"] + rk["pmax_bytes"] for s in rk["sent"])
+                    and rk["staged"] == exp_staged and rk["bitwise"])
+            if not good:
+                print(f"[{path}] rank {rk['rank']} FAILED", flush=True)
+                ok = False
+        metrics_ok = (r["bytes_sent"] == want["bytes_sent"] and r["rounds"] == want["rounds"]
+                      and abs(r["sim_time_s"] - want["sim_time_s"]) <= 1e-4 * want["sim_time_s"]
+                      and np.allclose(r["acc"], want["acc"], rtol=2e-4, atol=1e-6))
+        print(f"[{path}] bytes_sent {r['bytes_sent']} (one device {want['bytes_sent']}); "
+              f"sim_time_s {r['sim_time_s']} ({want['sim_time_s']}); acc_mean {r['acc']} "
+              f"({want['acc']}); median round wall of the slowest rank "
+              f"{float(np.median(np.max([rk['walls'] for rk in r['ranks']], 0)))} s", flush=True)
+        ok &= metrics_ok
+        launches[path] = {"gossip_mix_rows": sum(rk["launches"]["gossip_mix_rows"]
+                                                 for rk in r["ranks"])}
+    for name, runs in res["reference"].items():
+        card, cpu = runs["card"], runs["cpu"]
+        err = float(np.abs(card["X"] - cpu["X"]).max())
+        knobs, per_round = SHARD_REF_CASES[name]
+        want_l = {**{k: 0 for k in card["launches"]}, **{k: v * 8 for k, v in per_round.items()}}
+        good = (err <= 1e-4 and card["bytes"] == cpu["bytes"] and card["rounds"] == cpu["rounds"]
+                and card["launches"] == want_l and set(cpu["launches"].values()) == {0})
+        print(f"[shard-reference] {name}: max |X_card - X_cpu| {err}; bytes {card['bytes']} / "
+              f"{cpu['bytes']}; acc {card['acc']} / {cpu['acc']}; rank 0 launches on the card "
+              f"{card['launches']}: {'ok' if good else 'FAILED'}", flush=True)
+        ok &= good
+        launches[f"shard-reference-{name}"] = card["launches"]
+    # (c) against the single-process step on the card
+    c = SHARD_TRAIN
+    cfg = get_smoke_config(c["arch"])
+    params0, batches = shard_train_inputs(torch.device("cuda"))
+    w_nbr = 1.0 / (c["degree"] + 1)
+    for mode in ("shard_map", "quant"):
+        opt = make_optimizer("sgd", c["lr"])
+        tc = trainer.TrainConfig(n_nodes=c["n"], topology="regular", degree=c["degree"],
+                                 grad_clip=1.0)
+        node_step = trainer.make_node_train_step(cfg, opt, tc)
+        step = trainer.make_train_step(cfg, opt, tc)
+        params = tree_map(torch.clone, params0)
+        state, losses = opt.init(params), []
+        for bt in batches:
+            if mode == "shard_map":
+                params, state, loss = step(params, state, bt)
+            else:
+                params, state, node_losses = node_step(params, state, bt)
+                params, loss = plain_compressed_mix(params, c["degree"]), node_losses.mean()
+            losses.append(float(loss))
+        got_losses, got, got_launches = res["trainer"][mode]
+        errs = [np.abs(g.float().numpy() - w.float().cpu().numpy())
+                for g, w in zip(tree_leaves(got), tree_leaves(params))]
+        err = max(float(e.max()) for e in errs)
+        loss_err = max(abs(a - b) for a, b in zip(got_losses, losses))
+        if mode == "shard_map":
+            good = err <= 1e-5
+        else:  # a value at a rounding boundary may take the next int8 code
+            flips = sum(int((e > 1e-5).sum()) for e in errs) / sum(e.size for e in errs)
+            good = flips <= 1e-4 and all(
+                float(e.max()) <= 1e-5 + w_nbr * float(w.float().abs().max()) / 127 * 1.01
+                for e, w in zip(errs, tree_leaves(params)))
+        good &= loss_err <= 1e-5
+        print(f"[shard-train] {mode}: losses {got_losses} (one process {losses}); max |params - "
+              f"one process| {err}; rank 0 launches {got_launches}: {'ok' if good else 'FAILED'}",
+              flush=True)
+        ok &= good
+        launches[f"shard-train-{mode}"] = got_launches
+    if not ok:
+        raise AssertionError("[shard] a sharded run disagrees with its reference")
+    return launches
+
+
 def release():
     """Free a dropped engine before the next path: an engine and its
     scheduler refer to each other, so only the collector frees them, and a
@@ -3175,7 +3570,6 @@ def main():
     for name, lib in libs.items():
         print(f"[build] {name} -> {lib.relative_to(ROOT)}", flush=True)
         print(lib.with_suffix(".log").read_text().strip(), flush=True)
-
     checks = phase_kernels()
     checks.update(phase_compressed_kernels())
     launches_main, eng = phase_main_path()
@@ -3239,6 +3633,8 @@ def main():
     proc_kernels = phase_process_kernels()
     proc_launches, _ = phase_processes()
     by_path.update(proc_launches)
+    release()
+    by_path.update(phase_shard())
     release()
     phase_reference()
     release()

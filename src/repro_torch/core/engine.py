@@ -21,10 +21,20 @@ fault injection (``core/faults.py`` ``FaultPlan``: message loss, crash
 windows, latency spikes, payload corruption with the rollback guard);
 per-node learning-rate multipliers; checkpoints of the engine state
 (``save_state``/``load_state``, in the JAX package's file format).
-``DLConfig.validate()`` raises ``NotImplementedError`` for the one knob
-outside it, ``shard_devices > 0``.  ``backend="processes"`` (K worker
-processes gossiping over localhost TCP) is ``repro_torch.runtime``'s;
-``RoundEngine`` refuses it and points there.
+``backend="processes"`` (K worker processes gossiping over localhost TCP)
+is ``repro_torch.runtime``'s; ``RoundEngine`` refuses it and points there.
+
+Node sharding (``shard_devices=S``): the synchronous scheduler's node axis
+is block-sharded over the S ranks of a ``torch.distributed`` group, one
+process per rank (``launch/shard.py`` starts them; the JAX package runs
+one ``shard_map`` program instead).  Each rank builds its own engine from
+the same config and holds its B = N/S rows of the state; gossip crosses
+ranks through the sharded mixing operands of ``core/mixing.py``
+(``shard_backend``: all-gather, or slot-permutation point-to-point
+exchanges of the rows that cross ranks), each merge one launch of the
+port's merge kernel.  Every rank reports the single-device engine's
+``history``, ``bytes_sent`` and ``sim_time_s``; :meth:`RoundEngine.full_state`
+gathers the parameters.
 
 Device and numerics: the engine runs on the card (``device=None`` means
 ``"cuda"``) and raises if there is none; pass ``device="cpu"`` to run on
@@ -53,6 +63,11 @@ from repro_torch.core.network import (
     paper_testbed,
     straggler_compute_times,
     wan_deployment,
+)
+from repro_torch.core.mixing import (
+    NodeShard,
+    ShardedDense,
+    shard_topology,
 )
 from repro_torch.core.scheduler import make_scheduler
 from repro_torch.core.secure import SecureAggregation
@@ -122,12 +137,8 @@ class DLConfig:
     parallel_sends: bool = False
 
     def validate(self) -> "DLConfig":
-        """Raise ``NotImplementedError`` for a knob this port does not run
-        yet, else ``ValueError`` on the first violation of the JAX
+        """Raise ``ValueError`` on the first violation of the JAX
         package's rules; return self."""
-        def todo(what):
-            raise NotImplementedError(f"{what} is not ported yet")
-
         def bad(msg):
             raise ValueError(f"invalid DLConfig: {msg}")
 
@@ -210,8 +221,6 @@ class DLConfig:
 
         if not sharing_lib.is_full_sharing(self.sharing):
             sharing_lib.make_sharing(self.sharing)  # an unknown name raises
-        if self.shard_devices > 0:
-            todo("node sharding (shard_devices > 0; ROADMAP Queue 1 item 6)")
 
         if self.async_gossip not in ("neighborhood", "pairwise"):
             bad(f"unknown async_gossip {self.async_gossip!r} (neighborhood|pairwise)")
@@ -257,6 +266,10 @@ class DLConfig:
             if self.chunk_rounds <= 0:
                 bad("faults need chunk_rounds > 0 (the JAX package runs "
                     "them on its scanned chunk path only)")
+            if self.shard_devices > 0:
+                bad("faults are single-host for now (per-edge draws and "
+                    "the rollback guard are not distributed); drop "
+                    "shard_devices or the FaultPlan")
             if self.cohort_capacity > 0:
                 bad("faults do not compose with cohort_capacity (the cohort "
                     "gather/scatter step has no fault hooks); use the dense "
@@ -266,10 +279,23 @@ class DLConfig:
                     "modeled: per-edge loss would need per-edge mask "
                     "recovery (secure_recovery covers node-level churn "
                     "and crashes; latency spikes and corruption compose)")
+        # multi-device constraints, as the JAX package checks them
+        if self.shard_devices > 0:
+            if self.chunk_rounds <= 0:
+                bad("shard_devices requires the chunked path (chunk_rounds > 0); "
+                    "the JAX package's legacy per-round dispatch is single-device only")
+            if self.n_nodes % self.shard_devices:
+                bad(f"n_nodes={self.n_nodes} must divide evenly over "
+                    f"shard_devices={self.shard_devices}")
         # execution semantics, as the JAX package checks them
-        if self.semantics != "sync" and self.chunk_rounds <= 0:
-            bad(f"semantics={self.semantics!r} runs on the chunked path only "
-                "(chunk_rounds > 0)")
+        if self.semantics != "sync":
+            if self.chunk_rounds <= 0:
+                bad(f"semantics={self.semantics!r} runs on the chunked path only "
+                    "(chunk_rounds > 0)")
+            if self.shard_devices > 0:
+                bad(f"semantics={self.semantics!r} is single-host for now "
+                    "(the virtual clock is not yet distributed); use "
+                    "semantics='sync' with shard_devices")
         if self.semantics == "async":
             if self.secure:
                 bad("semantics='async' rejects secure=True (pairwise masks "
@@ -286,9 +312,13 @@ class DLConfig:
         # population-scale cohort activation
         if self.batch_keying not in ("stream", "node"):
             bad(f"unknown batch_keying {self.batch_keying!r} (stream|node)")
-        if self.batch_keying == "node" and self.chunk_rounds <= 0:
-            bad("batch_keying='node' derives indices on the chunked path "
-                "(chunk_rounds > 0)")
+        if self.batch_keying == "node":
+            if self.chunk_rounds <= 0:
+                bad("batch_keying='node' derives indices on the chunked path "
+                    "(chunk_rounds > 0)")
+            if self.shard_devices > 0:
+                bad("batch_keying='node' is single-host for now; the sharded "
+                    "span stages 'stream' batches per rank")
         if self.cohort_capacity < 0:
             bad(f"cohort_capacity must be >= 0, got {self.cohort_capacity}")
         if self.cohort_capacity > 0:
@@ -403,6 +433,10 @@ class RoundEngine:
     acc_fn(params, batch_x, batch_y) -> scalar     (single node)
     heterogeneous_lrs: optional (N,) per-node learning-rate multipliers
     applied to each node's optimizer updates.
+    With ``dl.shard_devices=S`` the node axis is sharded over the S ranks
+    of the default ``torch.distributed`` group: this rank holds rows
+    [rank·B, (rank+1)·B), B = N/S, of ``X``, the optimizer state and the
+    sharing state.
     """
 
     def __init__(
@@ -436,6 +470,12 @@ class RoundEngine:
         self.opt = optimizer
         self.batcher = batcher
         n = dl.n_nodes
+        self.shard: Optional[NodeShard] = None
+        if dl.shard_devices > 0:
+            self.shard = NodeShard.of_group(n)
+            if self.shard.ndev != dl.shard_devices:
+                raise ValueError(f"shard_devices={dl.shard_devices} but the process group "
+                                 f"has {self.shard.ndev} ranks")
         self.lr_scales = None
         if heterogeneous_lrs is not None:
             lrs = np.asarray(heterogeneous_lrs, np.float32)
@@ -472,6 +512,7 @@ class RoundEngine:
             if dl.cohort_capacity > 0:
                 raise ValueError("cohort_capacity gathers neighbor rows from sparse (N, D) "
                                  "tables; this topology resolved to dense mixing")
+        self._shard_backend = self._resolve_shard_backend() if self.shard else None
         # peak host->device bytes of the mixing topology: staged once for a
         # static overlay, per span for the dynamic one (scheduler)
         self.topo_stage_bytes_peak = 0
@@ -485,15 +526,27 @@ class RoundEngine:
                 st = SparseTopology.from_graph(self.graph)
             else:
                 W_np = self.graph.metropolis_hastings().astype(np.float32)
-                self._mix_static = torch.as_tensor(W_np, device=dev)
+                if self.shard is None:
+                    self._mix_static = torch.as_tensor(W_np, device=dev)
+                else:  # this rank's rows of W
+                    self._mix_static = ShardedDense(
+                        torch.as_tensor(self.shard.local(W_np), device=dev), self.shard)
                 self.topo_stage_bytes_peak = int(W_np.nbytes)
                 live_edges = (None, W_np * (1.0 - np.eye(n, dtype=np.float32)) > 0)
         else:
+            if self._shard_backend == "ppermute":
+                raise ValueError(
+                    "shard_backend='ppermute' builds its slot schedule from the dense "
+                    f"graph, capped at n_nodes={_DENSE_GRAPH_MAX_N}; use "
+                    "shard_backend='gather' at population scale")
             deg = 2 if dl.topology == "ring" else dl.degree
             st = SparseTopology.regular_circulant(n, deg)
             self._mean_degree = float(st.dmax)
         if self.mix_mode == "sparse" and self.sampler is None:
-            self._mix_static = st.to(dev)
+            if self.shard is None:
+                self._mix_static = st.to(dev)
+            else:  # ppermute exchanges by the slot-rebalanced table's schedule
+                self._mix_static = shard_topology(st, self.shard, dev, self._shard_backend)
             self.topo_stage_bytes_peak = st.stage_bytes()
             live_edges = (st.nbr, st.w > 0)
         self.network_model = build_network(dl)
@@ -547,15 +600,21 @@ class RoundEngine:
         self.rounds_done = 0
 
     def _init_state(self, init_params_fn, init_params) -> torch.Tensor:
-        """The flat (N, P) fp32 state and the single-node template tree."""
-        n, dev = self.dl.n_nodes, self.device
+        """The flat (N, P) fp32 state (this rank's (B, P) rows when
+        sharded: the same draws as the single-device engine's for those
+        nodes) and the single-node template tree."""
+        dev = self.device
+        lo, n = 0, self.dl.n_nodes
+        if self.shard is not None:
+            lo, n = self.shard.rank * self.shard.block, self.shard.block
         if init_params is not None:
             stacked = tree_map(lambda a: torch.as_tensor(a, device=dev), init_params)
             self.template = tree_map(lambda a: a[0].clone(), stacked)
-            return torch.cat([l.reshape(n, -1).float() for l in tree_leaves(stacked)], 1)
+            return torch.cat([l[lo:lo + n].reshape(n, -1).float()
+                              for l in tree_leaves(stacked)], 1)
         X = None
         for i in range(n):
-            gen = torch.Generator(device=dev).manual_seed(self.dl.seed * 1_000_003 + i)
+            gen = torch.Generator(device=dev).manual_seed(self.dl.seed * 1_000_003 + lo + i)
             p = init_params_fn(gen)
             if X is None:
                 self.template = p
@@ -571,6 +630,28 @@ class RoundEngine:
             return self.scheduler.eval_params()
         return tree_unvector(self.X, self.template)
 
+    def _resolve_shard_backend(self) -> str:
+        """The sharded gossip's transport: 'ppermute' slot-rebalances the
+        static neighbour table and moves only the rows that cross ranks
+        (O(D·B·P) bytes); 'gather' all-gathers the node axis (any table,
+        the dynamic overlay's per-round ones included).  'auto' takes
+        ppermute where the group moves device memory directly (nccl over
+        several cards) and gather otherwise: the JAX package's rule, which
+        takes ppermute on the TPU's interconnect and gather where its
+        collectives are emulated on the host."""
+        b = self.dl.shard_backend
+        static_sparse = self.sampler is None and self.mix_mode == "sparse"
+        if b == "ppermute":
+            if not static_sparse:
+                raise ValueError(
+                    "shard_backend='ppermute' needs a static sparse topology (dynamic "
+                    "tables have no static schedule; dense mixing all-gathers by "
+                    "construction)")
+            return b
+        if b == "auto" and static_sparse and self.shard.backend == "nccl":
+            return "ppermute"
+        return "gather"
+
     def _resolve_mix_mode(self) -> str:
         """'sparse' (neighbor-indexed O(N·d·P) gossip) for sparse overlays,
         'dense' (W @ X) where the graph is effectively complete."""
@@ -585,16 +666,34 @@ class RoundEngine:
 
     @torch.no_grad()
     def _eval(self, tx, ty) -> np.ndarray:
-        """(N,) per-node accuracy on the test batch, over groups of nodes."""
-        n = self.dl.n_nodes
+        """(N,) per-node accuracy on the test batch, over groups of nodes
+        (sharded: this rank's rows, then all-gathered)."""
         group = max(1, _EVAL_ELEMS // max(tx.numel(), 1))
         node_acc = vmap(lambda p: self.acc_fn(p, tx, ty))
         params = self.scheduler.eval_params()
-        accs = [
+        rows = tree_leaves(params)[0].shape[0]
+        accs = torch.cat([
             node_acc(tree_map(lambda a: a[i:i + group], params))
-            for i in range(0, n, group)
-        ]
-        return torch.cat(accs).float().cpu().numpy()
+            for i in range(0, rows, group)
+        ]).float()
+        if self.shard is not None:
+            accs = self.shard.gather(accs)
+        return accs.cpu().numpy()
+
+    def _lead(self) -> bool:
+        """Whether this process prints and writes results: always, except
+        on the ranks other than 0 of a sharded run."""
+        return self.shard is None or self.shard.rank == 0
+
+    def full_state(self, tree=None):
+        """The global node-stacked form of ``tree`` (default: the flat
+        state X), each node-stacked leaf all-gathered over the ranks of a
+        sharded run; the tree itself otherwise.  A collective: every rank
+        calls it."""
+        tree = self.X if tree is None else tree
+        if self.shard is None:
+            return tree
+        return tree_map(self.shard.gather, tree)
 
     def _record(self, rnd: int, tx, ty, t0: float, log: bool):
         accs = self._eval(tx, ty)
@@ -609,7 +708,7 @@ class RoundEngine:
         }
         rec.update(self.scheduler.extra_metrics())
         self.history.append(rec)
-        if log:
+        if log and self._lead():
             print(
                 f"[{self.dl.topology}/{type(self.sharing).__name__}] round {rnd:4d} "
                 f"acc {rec['acc_mean']:.4f}±{rec['acc_std']:.4f} "
@@ -659,8 +758,18 @@ class RoundEngine:
             )
         self._check_flat_state()
         step = self.rounds_done if step is None else step
-        return save_checkpoint(path, step, params=self.params, opt_state=self.opt_state,
-                               share_state=self.share_state)
+        # sharded: the global state, as the JAX package saves its sharded
+        # arrays; rank 0 writes it and the others wait for the file
+        trees = {"params": tree_unvector(self.full_state(), self.template),
+                 "opt_state": self.full_state(self.opt_state),
+                 "share_state": self.full_state(self.share_state)}
+        if self._lead():
+            save_checkpoint(path, step, **trees)
+        if self.shard is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
+        return os.path.join(path, f"ckpt_{step:08d}.npz")
 
     def load_state(self, path: str, step: Optional[int] = None) -> int:
         """Restore a checkpoint of either package (the latest in ``path``
@@ -668,13 +777,16 @@ class RoundEngine:
         round.  Returns the step."""
         from repro_torch.checkpoint import load_checkpoint, restore_tree
 
+        def local(t):  # this rank's rows of a global tree (None: no leaves)
+            return t if self.shard is None or t is None else tree_map(self.shard.local, t)
+
         self._check_flat_state()
         step, trees = load_checkpoint(path, step)
-        params = restore_tree(self.params, trees.get("params"))
-        n = self.dl.n_nodes
+        params = restore_tree(self.params, local(trees.get("params")))
+        n = self.X.shape[0]
         self.X = torch.cat([l.reshape(n, -1).to(torch.float32) for l in tree_leaves(params)], 1)
-        self.opt_state = restore_tree(self.opt_state, trees.get("opt_state"))
-        self.share_state = restore_tree(self.share_state, trees.get("share_state"))
+        self.opt_state = restore_tree(self.opt_state, local(trees.get("opt_state")))
+        self.share_state = restore_tree(self.share_state, local(trees.get("share_state")))
         self._start_round = self.rounds_done = int(step)
         return int(step)
 
@@ -685,7 +797,7 @@ class RoundEngine:
 
     def _dump_results(self):
         """Per-run JSON results: the config and the history."""
-        if not self.dl.results_dir:
+        if not self.dl.results_dir or not self._lead():
             return
         os.makedirs(self.dl.results_dir, exist_ok=True)
         with open(os.path.join(self.dl.results_dir, "results.json"), "w") as f:

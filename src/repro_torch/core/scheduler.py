@@ -27,6 +27,12 @@ the absolute round, each staged on the device once per span.  Two host
 reads are added on the async path: the clock rebase check after each
 span, and under ``selection="hier"`` whether a step's slice is covered by
 the selected segments (the reference's ``lax.cond``), once per step.
+
+Node-sharded runs (``shard_devices``, the synchronous scheduler only):
+every rank stages the span's global host inputs as the single-device
+engine does and keeps its own rows of the batches and masks; the round
+times are reduced over the ranks (``pmax``) once per span, before the one
+host read.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ from repro_torch import prng
 from repro_torch.core import compression as compression_lib
 from repro_torch.core import faults as faults_lib
 from repro_torch.core.faults import STAT_KEYS
-from repro_torch.core.mixing import gossip_pair_avg
+from repro_torch.core.mixing import ShardedDense, gossip_pair_avg, shard_topology
 from repro_torch.core.sharing import (
     edge_reweight,
     edge_reweight_sparse,
@@ -166,7 +172,9 @@ class Scheduler:
             ids = torch.arange(eng.dl.n_nodes, device=eng.device)
             return [lambda r=start + i: self._node_indices(r, ids) for i in range(n_rounds)]
         idx = eng.batcher.chunk_indices(start, n_rounds, eng.dl.local_steps)
-        staged = torch.as_tensor(idx, device=eng.device).long()
+        if eng.shard is not None:  # (R, L, N, B): this rank's nodes
+            idx = eng.shard.local(idx, axis=2)
+        staged = torch.as_tensor(np.ascontiguousarray(idx), device=eng.device).long()
         return [lambda i=i: staged[i] for i in range(n_rounds)]
 
     def stage_topology(self, start: int, n_rounds: int) -> List[Tuple[object, Optional[tuple]]]:
@@ -183,14 +191,23 @@ class Scheduler:
         if eng.mix_mode == "sparse":
             st = eng.sampler.sparse_stack(start, n_rounds)
             staged = st.stage_bytes()
-            ops = [(W, (st.nbr[r], st.w[r] > 0))
-                   for r, W in enumerate(stage_rounds(st, eng.device))]
+            if eng.shard is None:
+                tables = stage_rounds(st, eng.device)
+            else:  # this rank's rows of each round's table, all-gathered mixing
+                tables = [shard_topology(SparseTopology(st.nbr[r], st.w[r], st.w_self[r]),
+                                         eng.shard, eng.device) for r in range(n_rounds)]
+            ops = [(W, (st.nbr[r], st.w[r] > 0)) for r, W in enumerate(tables)]
         else:
             Wst = eng.sampler.weights_stack(start, n_rounds)
             staged = int(Wst.nbytes)
             off = 1.0 - np.eye(Wst.shape[1], dtype=np.float32)
-            Wd = torch.as_tensor(Wst, device=eng.device)
-            ops = [(Wd[r], (None, Wst[r] * off > 0)) for r in range(n_rounds)]
+            if eng.shard is None:
+                Wd = torch.as_tensor(Wst, device=eng.device)
+                mix = [Wd[r] for r in range(n_rounds)]
+            else:
+                Wd = torch.as_tensor(eng.shard.local(Wst, axis=1), device=eng.device)
+                mix = [ShardedDense(Wd[r], eng.shard) for r in range(n_rounds)]
+            ops = [(mix[r], (None, Wst[r] * off > 0)) for r in range(n_rounds)]
         eng.topo_stage_bytes_peak = max(eng.topo_stage_bytes_peak, staged)
         return ops
 
@@ -252,6 +269,8 @@ class Scheduler:
         self._fault_totals["faults_injected"] += downtime
         self._fault_totals["faults_survived"] += downtime
         act_dev = None if act_np is None else torch.as_tensor(act_np, device=eng.device)
+        if act_dev is not None and eng.shard is not None:  # (R, B): this rank's nodes
+            act_dev = eng.shard.local(act_dev, axis=1)
         pairwise = self.semantics == "async" and eng.dl.async_gossip == "pairwise"
         faults = self.stage_faults(start, n_rounds, topo, edge_width=1 if pairwise else None)
         return [(topo[r][0], topo[r][1], idx[r],
@@ -305,10 +324,13 @@ class SyncScheduler(Scheduler):
             bx, by = self._batch(idx())
             eng.X, eng.opt_state, eng.share_state, nb, t, fstats = eng.steps.train_and_mix(
                 eng.X, eng.opt_state, eng.share_state, bx, by, W, start + r, act, live, faults,
+                shard=eng.shard,
             )
             nbytes.append(nb)
             times.append(t)
             stats.append(fstats)
+        if eng.shard is not None and times:  # each rank's maxima: one pmax for the span
+            times = list(eng.shard.pmax(torch.stack(times)))
         # one host sync for the span (the round times and the guard's
         # detections); per-round float64 sums in round order
         for nb, t in zip(nbytes, _read(times)):

@@ -29,9 +29,14 @@ occurrences of a pair expand the same bits and cancel exactly.
 ``W`` may be the dense (N, N) matrix or a ``SparseTopology``; only the
 per-receiver weight is read from it.
 
+* :meth:`SecureAggregation._round_sharded` — the node-sharded round
+  (``mixing.ShardedTopology`` / ``ShardedDense``): the co-neighbours'
+  rows arrive through the operand's exchange, and the pair keys are
+  folded from global node ids, so every mask pair cancels as on one
+  device.
+
 Communication: each edge carries the P masked values plus metadata (pair
-seeds, framing), accounted as 3% after the paper's cost model.  The
-sharded round of the reference is not ported.
+seeds, framing), accounted as 3% after the paper's cost model.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core.mixing import ShardedDense, ShardedTopology
 from repro_torch.core.topology import SparseTopology, neighbor_table
 from repro_torch.kernels.gossip_mix import gossip_mix_rows
 from repro_torch.kernels.secure_mask import mask_bits_to_uniform, secure_mask_apply_rows_keyed
@@ -137,6 +143,8 @@ class SecureAggregation:
         X's device) gives equal weight w to all of a receiver's neighbours;
         ``act`` is the (N,) participation mask on X's device (recovery
         only), with which W already carries the churn reweight."""
+        if isinstance(W, (ShardedTopology, ShardedDense)):
+            return self._round_sharded(X, W, state, key, degree, rnd, act)
         nbr, validf = self._tables(X.device)
         if isinstance(W, SparseTopology):
             # equal weights: any live slot's weight is w, and the row max
@@ -148,35 +156,78 @@ class SecureAggregation:
         return self._masked_aggregate(X.to(torch.float32), nbr, validf, wvec, key, rnd,
                                       degree, X.dtype, state, act_nbr)
 
-    def message_tables(self, key, rnd, device):
+    def message_tables(self, key, rnd, device, nbr=None, validf=None, recv=None):
         """The mask kernel's operands for every message of a round, message
         r·D + s being neighbour slot s's copy for receiver r: (rows (N·D,)
         int32, the sender of each message; keys (N·D, D, 2) int64 words of
         the pair PRF with each co-neighbour slot; signs (N·D, D) fp32, +1
         where the sender is the smaller id, -1 where it is the larger, 0 on
-        the sender itself and on invalid slots).  Computed on ``device``."""
-        nbr, validf = self._tables(device)
+        the sender itself and on invalid slots).  Computed on ``device``,
+        over the whole table, or over the receiver rows ``recv`` (global
+        ids) whose (B, D) neighbour table ``nbr`` (global ids, int64) and
+        validity ``validf`` are given."""
+        if nbr is None:
+            nbr, validf = self._tables(device)
         N, D = nbr.shape
         i_mat, j_mat = nbr[:, :, None], nbr[:, None, :]            # sender, co-neighbour
         signs = (torch.where(i_mat < j_mat, 1.0, -1.0) * validf[:, None, :]
                  * (1.0 - torch.eye(D, dtype=torch.float32, device=nbr.device)))
-        r = torch.arange(N, dtype=torch.int64, device=nbr.device)[:, None, None]
+        r = (torch.arange(N, dtype=torch.int64, device=nbr.device) if recv is None
+             else recv.to(torch.int64))[:, None, None]
         keys = prng.key_data(pair_keys(prng.fold_in(key, rnd), torch.minimum(i_mat, j_mat),
                                        torch.maximum(i_mat, j_mat), r))
         return (nbr.reshape(-1).to(torch.int32), keys.reshape(N * D, D, 2),
                 signs.reshape(N * D, D))
 
+    def _round_sharded(self, X, W, state, key, degree, rnd, act=None):
+        """The node-sharded round: X is this rank's (B, P) rows, W a
+        sharded operand, ``act`` this rank's (B,) block.  The messages'
+        senders are read from the operand's local stack of exchanged rows
+        (the slot-permutation exchange, or the all-gather) and the masks
+        are keyed by global node ids, so every pair cancels as on one
+        device.  Recovery (``act`` given) uses the canonical neighbour
+        table at this rank's rows, over the all-gathered rows: the
+        operand's churn-zeroed weights cannot be told apart from its
+        padding, and recovery must see the schedule the masks were keyed
+        over."""
+        Xf = X.to(torch.float32)
+        rows = W.rows
+        if isinstance(W, ShardedTopology) and act is None:
+            nbr = W.nbr.to(torch.int64)
+            validf = (W.w > 0).to(torch.float32)
+            wvec = W.w.to(torch.float32).amax(1)
+            src = W.exchange(Xf), W.merge_tables(include_self=False)[0]
+        else:
+            nbr_all, valid_all = self._tables(X.device)
+            nbr, validf = nbr_all[rows], valid_all[rows]
+            if isinstance(W, ShardedTopology):
+                wvec = W.w.to(torch.float32).amax(1)
+            else:
+                wvec = (W.W.to(torch.float32).gather(1, nbr) * validf).amax(1)
+            src = W.shard.gather(Xf), nbr
+        act_nbr = None if act is None else W.shard.gather(act.to(torch.float32))[nbr]
+        return self._masked_aggregate(Xf, nbr, validf, wvec, key, rnd, degree, X.dtype, state,
+                                      act_nbr, recv=rows, src=src)
+
     def _masked_aggregate(self, Xf, nbr, validf, wvec, key, rnd, degree, dtype, state,
-                          act_nbr=None):
+                          act_nbr=None, recv=None, src=None):
         """Pass 1 applies the masks every sender transmitted (it masks
         against every valid co-neighbour: it does not know who dropped);
         with ``act_nbr`` (the neighbour slots' participation, (N, D)) pass 2
         subtracts the (sender, dropped co-neighbour) masks in place and the
-        receiver sums its live slots only."""
+        receiver sums its live slots only.  ``recv`` and ``src`` are the
+        sharded round's: the receivers' global ids, and (the rows the
+        senders are read from, each message's row in them (B, D))."""
         N, P = Xf.shape
         D = nbr.shape[1]
-        rows, keys, signs = self.message_tables(key, rnd, Xf.device)
-        msgs = secure_mask_apply_rows_keyed(Xf, rows, keys, signs, self.mask_bound)  # (N·D, P)
+        if recv is None:
+            rows, keys, signs = self.message_tables(key, rnd, Xf.device)
+            base = Xf
+        else:
+            _, keys, signs = self.message_tables(key, rnd, Xf.device, nbr, validf, recv)
+            base, table = src
+            rows = table.reshape(-1).to(torch.int32).contiguous()
+        msgs = secure_mask_apply_rows_keyed(base, rows, keys, signs, self.mask_bound)  # (N·D, P)
         live = validf
         if act_nbr is not None:
             down = validf * (1.0 - act_nbr)                         # dropped co-neighbours

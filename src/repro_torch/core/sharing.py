@@ -12,8 +12,10 @@ emit per-node payloads, ``idx`` (N, k) int32 and ``val`` (N, k),
 aggregated by :func:`repro_torch.core.mixing.mix_payload` (one
 payload-merge kernel launch; ``payload=False`` takes the dense-mask
 oracle).  Random draws are ``jax.random``'s, bitwise, through
-``repro_torch.prng`` with per-node keys.  The churn reweights live here
-too.
+``repro_torch.prng`` with per-node keys, folded from each row's global
+node id, so a node-sharded rank (``mixing.ShardedTopology``) draws what
+the single-device engine draws for its rows.  The churn reweights live
+here too.
 
 Unlike the JAX package's pure functions, ``round`` updates the strategy
 state (``last_shared``, ``xhat``) in place: at N=1024 each is a 2.4 GB
@@ -30,7 +32,13 @@ import torch.nn.functional as F
 
 from repro_torch import prng
 from repro_torch.core.compression import dequantize_int8, quantize_int8
-from repro_torch.core.mixing import apply_W, mix_payload, mix_payload_masked, mix_payload_strided
+from repro_torch.core.mixing import (
+    _mix_rows,
+    apply_W,
+    mix_payload,
+    mix_payload_masked,
+    mix_payload_strided,
+)
 from repro_torch.core.topology import SparseTopology
 from repro_torch.kernels.sparsify import topk_threshold_rows
 
@@ -144,10 +152,11 @@ def _randk_idx(key, shape, k: int, device, rows=None):
     return _randk_select(_randk_uniforms(key, shape, device, rows), k)
 
 
-def _strided_phase(key, n: int, stride: int, device):
+def _strided_phase(key, n: int, stride: int, device, rows=None):
     """(N,) int32 random phases in [0, stride): node n shares the
-    coordinates {i·stride + phase_n}.  Per-node keyed, one uniform each."""
-    u = prng.uniform(_node_keys(key, n, device), ())
+    coordinates {i·stride + phase_n}.  Per-node keyed (global ids
+    ``rows``), one uniform each."""
+    u = prng.uniform(_node_keys(key, n, device, rows), ())
     return torch.floor(u * stride).to(torch.int32)
 
 
@@ -158,27 +167,41 @@ def sparse_aggregate(X, W, M):
     return (Xf + apply_W(W, Mf * Xf) - Xf * apply_W(W, Mf)).to(X.dtype)
 
 
-def participation_reweight(W, active):
+def participation_reweight(W, active, *, shard=None):
     """Reweight a row-stochastic (N, N) mixing matrix for a per-round
     participation mask (churn): active (N,) {0,1} on W's device; a down node
     neither sends nor receives, so every edge touching it goes and the
     freed mass returns to each row's diagonal (a down node's row becomes
     e_i).  Returns W' only: the byte accounting's degree comes from
-    :func:`participation_deg_eff` on the host, without reading the device."""
+    :func:`participation_deg_eff` on the host, without reading the device
+    (every rank of a sharded run holds the global host mask, so the JAX
+    package's psum of the edge and alive counts has nothing to add).
+
+    shard: a ``mixing.NodeShard`` — W is then this rank's (B, N) rows and
+    ``active`` its (B,) block; the column mask is all-gathered."""
     Wf = W.to(torch.float32)
     m = active.to(torch.float32)
-    diag = torch.eye(Wf.shape[0], dtype=torch.float32, device=Wf.device)
-    off = Wf * (1.0 - diag) * m[:, None] * m[None, :]
+    if shard is None:
+        m_col = m
+        diag = torch.eye(Wf.shape[0], dtype=torch.float32, device=Wf.device)
+    else:
+        m_col = shard.gather(m)
+        diag = (torch.arange(Wf.shape[1], device=Wf.device)[None, :]
+                == shard.rows(Wf.device)[:, None]).to(torch.float32)
+    off = Wf * (1.0 - diag) * m[:, None] * m_col[None, :]
     return off + diag * (1.0 - off.sum(1, keepdim=True))
 
 
-def participation_reweight_sparse(topo: SparseTopology, active):
+def participation_reweight_sparse(topo, active, *, shard=None):
     """Sparse-form :func:`participation_reweight`: neighbour slots with a
     down endpoint get weight 0 and the freed mass returns to ``w_self``
     (a down node's row becomes the identity); O(N·D).  A new topology
-    (``SparseTopology.reweighted``)."""
+    (``reweighted``).  shard: ``topo`` is then this rank's
+    ``ShardedTopology`` and ``active`` its (B,) block; the neighbours'
+    mask is all-gathered."""
     m = active.to(torch.float32)
-    w = topo.w.to(torch.float32) * (m[:, None] * m[topo.nbr.long()])
+    m_nbr = m if shard is None else shard.gather(m)
+    w = topo.w.to(torch.float32) * (m[:, None] * m_nbr[topo.nbr.long()])
     return topo.reweighted(w, 1.0 - w.sum(-1))
 
 
@@ -340,7 +363,7 @@ class RandomKSharing(_PayloadSharing):
             return self._round_strided(X, W, state, key, degree, k)
         if self.sampler != "uniform":
             raise ValueError(f"unknown sampler {self.sampler!r} (uniform|strided)")
-        idx = _randk_idx(key, X.shape, k, X.device)
+        idx = _randk_idx(key, X.shape, k, X.device, _mix_rows(W))
         val = X.gather(1, idx.long())
         valf, item, header = _wire(val, self.quantize, X.dtype)
         X2 = self._aggregate(X, W, idx, valf, sorted_idx=True)
@@ -353,7 +376,7 @@ class RandomKSharing(_PayloadSharing):
         n, p = X.shape
         stride = -(-p // k)
         Xp = F.pad(X, (0, k * stride - p))
-        phase = _strided_phase(key, n, stride, X.device)
+        phase = _strided_phase(key, n, stride, X.device, _mix_rows(W))
         idx = torch.arange(k, dtype=torch.int32, device=X.device)[None, :] * stride + phase[:, None]
         val = Xp.gather(1, idx.long())
         valf, item, header = _wire(val, self.quantize, X.dtype)
@@ -438,7 +461,7 @@ class ChocoSGD(_PayloadSharing):
         if self.compressor == "topk":
             idx = _topk_idx(diff.abs(), k, self.selector).long()
         else:
-            idx = _randk_idx(key, X.shape, k, X.device).long()
+            idx = _randk_idx(key, X.shape, k, X.device, _mix_rows(W)).long()
         valf, item, header = _wire(diff.gather(1, idx), self.quantize, torch.float32)
         del diff
         if act is not None:
@@ -462,7 +485,7 @@ class QuantizedSharing:
         return ()
 
     def round(self, X, W, state, key=None, degree=1.0, rnd=0):
-        keys = _node_keys(key, X.shape[0], X.device) if self.stochastic else None
+        keys = _node_keys(key, X.shape[0], X.device, _mix_rows(W)) if self.stochastic else None
         codes, scale = quantize_int8(X, keys)
         Xq = dequantize_int8(codes, scale)  # what the receivers reconstruct
         X2 = apply_W(W, Xq).to(X.dtype)

@@ -13,6 +13,14 @@ round's degree, bytes, seed-recovery bytes and the fault counters that
 depend on them alone are computed there, in the reference's fp32
 operation order; the guard's detections stay on the device until the
 scheduler's one sync per span.  The device is never read inside a round.
+
+Node-sharded rounds (``shard``, a ``mixing.NodeShard``): X, the optimizer
+state, the sharing state and the round's active mask are this rank's
+(B, ...) rows, the mixing operand a sharded one.  Every rank stages the
+same global host masks, so the degree, the bytes and the seed-recovery
+bytes come out equal on every rank without a collective; the round time
+is this rank's maximum, which the scheduler reduces over the ranks once
+per span.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from torch.func import grad, vmap
 
 from repro_torch import prng
 from repro_torch.core import faults as faults_lib
+from repro_torch.core.mixing import ShardedDense, ShardedTopology
 from repro_torch.core.network import gathered_round_times, node_round_times
 from repro_torch.core.secure import SEED_SHARE_BYTES
 from repro_torch.core.sharing import (
@@ -120,17 +129,20 @@ class RoundSteps:
     faults: Optional[faults_lib.FaultPlan] = None
     fault_key: Optional[prng.Key] = None
 
-    def local_train(self, params, opt_state, bx, by, active=None, rows=None):
+    def local_train(self, params, opt_state, bx, by, active=None, rows=None, shard=None):
         """``bx.shape[0]`` SGD steps on every node at once: per-node
         gradients by ``vmap(grad(loss_fn))``.  ``params`` are views of the
         flat state and are updated in place.  A down node (active 0) takes
         a zero update and keeps its optimizer state.  ``rows`` (global node
         ids) marks a gathered row subset, the cohort path's hot set, whose
-        per-node learning rates are those rows'."""
+        per-node learning rates are those rows'; ``shard`` a sharded
+        rank's block, whose rates are its block's."""
         node_grad = vmap(grad(self.loss_fn))
         lrs = self.lr_scales
         if lrs is not None and rows is not None:
             lrs = lrs[rows]
+        elif lrs is not None and shard is not None:
+            lrs = shard.local(lrs)
         for s in range(bx.shape[0]):
             grads = node_grad(params, bx[s], by[s])
             updates, new_opt = self.opt.update(grads, opt_state, params)
@@ -144,17 +156,32 @@ class RoundSteps:
         return params, opt_state
 
     def round_time(self, Wm, nbytes: float, deg_eff, active=None, lat_mult=None,
-                   reduce: str = "max"):
+                   reduce: str = "max", shard=None):
         """Simulated round wall-clock, fp32 on the device, from the
         per-node ``network.node_round_times`` (a down node's time counts
         0): their max (``reduce="max"``, the synchronous barrier) or the
         (N,) vector itself (``"none"``, for the local and async clocks).
         For a SparseTopology the per-edge latency and goodput are gathered
         through the neighbor table.  ``lat_mult`` multiplies each edge's
-        latency (latency spikes), in ``Wm``'s edge layout."""
+        latency (latency spikes), in ``Wm``'s edge layout.  Sharded
+        (``shard``, ``Wm`` a sharded operand): this rank's rows, indexing
+        the replicated link matrices by global id; the max is this rank's,
+        and the caller reduces it over the ranks."""
         dev = self.lat.device
         per_edge = per_edge_bytes(nbytes, deg_eff, dev)
-        if isinstance(Wm, SparseTopology):
+        ct = self.compute_node if shard is None else shard.local(self.compute_node)
+        if isinstance(Wm, ShardedTopology):
+            rows = Wm.rows[:, None]
+            nbr = Wm.nbr.long()
+            A = (Wm.w > 0).to(torch.float32)
+            lat = self.lat[rows, nbr]
+            gp = self.goodput[rows, nbr]
+        elif isinstance(Wm, ShardedDense):
+            rows = Wm.rows
+            offdiag = torch.arange(Wm.W.shape[1], device=dev)[None, :] != rows[:, None]
+            A = (Wm.W * offdiag > 0).to(torch.float32)
+            lat, gp = self.lat[rows], self.goodput[rows]
+        elif isinstance(Wm, SparseTopology):
             rows = torch.arange(Wm.nbr.shape[0], device=dev)[:, None]
             nbr = Wm.nbr.long()
             A = (Wm.w > 0).to(torch.float32)
@@ -167,8 +194,7 @@ class RoundSteps:
             lat, gp = self.lat, self.goodput
         if lat_mult is not None:
             lat = lat * lat_mult
-        node_t = node_round_times(A, lat, gp, per_edge, self.compute_node,
-                                  self.parallel_sends)
+        node_t = node_round_times(A, lat, gp, per_edge, ct, self.parallel_sends)
         if active is not None:
             node_t = active * node_t
         return node_t if reduce == "none" else node_t.max()
@@ -205,12 +231,15 @@ class RoundSteps:
         on the host from ``live_edges`` (this round's edges; the static
         operand's by default), and a strategy that ``needs_act`` (secure
         recovery; TopK and CHOCO, to freeze a down node's state) gets the
-        mask as ``act=``."""
+        mask as ``act=``.  A sharded operand's reweight gathers the
+        neighbours' mask over the ranks."""
         key = prng.fold_in(self.base_key, rnd)
         if act is None:
             return W, self.mean_degree, key, {}
-        if isinstance(W, SparseTopology):
-            Wm = participation_reweight_sparse(W, act[0])
+        if isinstance(W, (SparseTopology, ShardedTopology)):
+            Wm = participation_reweight_sparse(W, act[0], shard=getattr(W, "shard", None))
+        elif isinstance(W, ShardedDense):
+            Wm = ShardedDense(participation_reweight(W.W, act[0], shard=W.shard), W.shard)
         else:
             Wm = participation_reweight(W, act[0])
         deg = participation_deg_eff(*(live_edges or self.live_edges), act[1])
@@ -219,7 +248,7 @@ class RoundSteps:
 
     def train_and_mix(self, X, opt_state, share_state, bx, by, W, rnd: int = 0, act=None,
                       live_edges=None, faults: Optional[RoundFaults] = None,
-                      time_reduce: str = "max"):
+                      time_reduce: str = "max", shard=None):
         """One round: local steps (in place on X), then the share/mix step.
 
         ``act`` is None for full participation, else the round's mask as
@@ -245,7 +274,11 @@ class RoundSteps:
         (``"none"``, for the local scheduler's clocks; the compute times
         alone without a network model), and the ``faults.STAT_KEYS``
         counters, floats or (the guard's detections) 0-d device
-        tensors."""
+        tensors.
+
+        ``shard``: a sharded rank's round (module docstring): ``act`` is
+        then ``(this rank's (B,) block on the device, the global (N,) host
+        mask)`` and the round time this rank's maximum."""
         plan = self.faults
         fstats = faults_lib.zero_stats()
         active = None if act is None else act[0]
@@ -254,7 +287,7 @@ class RoundSteps:
             snap = (X.clone(), tree_map(torch.clone, opt_state),
                     tree_map(torch.clone, share_state))
         params = tree_unvector(X, self.template)
-        _, opt_state = self.local_train(params, opt_state, bx, by, active)
+        _, opt_state = self.local_train(params, opt_state, bx, by, active, shard=shard)
         Wm, deg, key, share_kw = self.share_operands(W, rnd, act, live_edges)
         Wm_mix, lat_mult = Wm, None
         if plan is not None and plan.edge_faults:
@@ -300,7 +333,7 @@ class RoundSteps:
             fstats["faults_detected"] = fstats["faults_recovered"] = bad.sum()
         if self.lat is not None:
             sim_t = self.round_time(Wm, float(nbytes), deg, active, lat_mult,
-                                    reduce=time_reduce)
+                                    reduce=time_reduce, shard=shard)
         elif time_reduce == "none":
             # no network: comm is free, the compute times still drive the
             # clocks (as the async scheduler's cadence is compute-only)

@@ -340,6 +340,113 @@ def stage_rounds(stack: "SparseTopology", device) -> List["SparseTopology"]:
     return views
 
 
+def decompose_slot_permutations(topo: SparseTopology) -> Optional[SparseTopology]:
+    """Slot-rebalance a padded (N, D) neighbour table so that every column
+    is a permutation of range(N), the form node-sharded gossip exchanges
+    slot by slot (``mixing.PermuteSchedule``).
+
+    Counting the padding self-edges, a symmetric graph's directed-edge
+    bipartite multigraph is D-regular, so König's theorem splits it into D
+    perfect matchings; each becomes one slot, and the weights travel with
+    their edges, so ``to_dense`` of the result equals ``to_dense(topo)``.
+    Kuhn's augmenting paths find the matchings, receiver by receiver and
+    edge by edge in the JAX package's order, so the tables are bitwise its
+    tables.  Returns None where no perfect matching exists (an asymmetric
+    or irregular hand-built table); callers then gather instead.
+    """
+    nbr = np.asarray(topo.nbr)
+    w = np.asarray(topo.w)
+    if nbr.ndim != 2:
+        return None
+    n, d = nbr.shape
+    import sys
+
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 8 * n + 100))
+    try:
+        # receiver -> its (sender, slot) edges not yet placed
+        adj: List[List[Tuple[int, int]]] = [
+            [(int(nbr[i, k]), k) for k in range(d)] for i in range(n)
+        ]
+        new_nbr = np.empty_like(nbr)
+        new_w = np.empty_like(w)
+        for s in range(d):
+            match_src = -np.ones(n, np.int64)   # sender -> the receiver it serves
+            match_edge = np.zeros(n, np.int64)  # sender -> the slot of that edge
+
+            def try_assign(i, seen):
+                for src, k in adj[i]:
+                    if seen[src]:
+                        continue
+                    seen[src] = True
+                    if match_src[src] < 0 or try_assign(int(match_src[src]), seen):
+                        match_src[src] = i
+                        match_edge[src] = k
+                        return True
+                return False
+
+            for i in range(n):
+                if not try_assign(i, np.zeros(n, bool)):
+                    return None
+            for src in range(n):
+                i, k = int(match_src[src]), int(match_edge[src])
+                new_nbr[i, s] = src
+                new_w[i, s] = w[i, k]
+                adj[i].remove((src, k))
+        return SparseTopology(new_nbr, new_w, np.asarray(topo.w_self).copy())
+    finally:
+        sys.setrecursionlimit(limit)
+
+
+def build_permute_schedule(nbr_perm: np.ndarray, ndev: int):
+    """Per-slot rotation-grouped send and receive index tables for
+    block-sharded permutation gossip.
+
+    nbr_perm: (N, S) rebalanced table (every column a permutation, see
+    :func:`decompose_slot_permutations`), N nodes block-sharded over
+    ``ndev`` ranks of B = N/ndev rows.  Applying column s means rank e
+    receives, from each rank d, the rows x[src] with src on d and the
+    receiver on e; grouped by the rotation r = (e - d) mod ndev, each group
+    is one exchange d -> (d + r) % ndev.
+
+    Returns a list over slots of ``{r: (send_idx, recv_pos)}``: send_idx[d]
+    the local rows rank d sends under rotation r (padded with 0),
+    recv_pos[e] the local receiver rows on rank e (padded with B, out of
+    range).  Only rotations that carry rows appear.  Bitwise the JAX
+    package's tables.
+    """
+    n, s_slots = nbr_perm.shape
+    if n % ndev:
+        raise ValueError("node count must divide evenly across devices")
+    b = n // ndev
+    out = []
+    for s in range(s_slots):
+        src = nbr_perm[:, s].astype(np.int64)
+        dst = np.arange(n, dtype=np.int64)
+        rot = ((dst // b) - (src // b)) % ndev
+        sched = {}
+        for r in np.unique(rot):
+            counts = []
+            pairs = []
+            for d in range(ndev):
+                sel = (rot == r) & (src // b == d)
+                i_sel = dst[sel]  # ascending: both sides enumerate this order
+                pairs.append((src[sel] % b, i_sel % b))
+                counts.append(i_sel.size)
+            k = max(counts)
+            if k == 0:
+                continue
+            send_idx = np.zeros((ndev, k), np.int32)
+            recv_pos = np.full((ndev, k), b, np.int32)  # b: out of range
+            for d, (s_loc, d_loc) in enumerate(pairs):
+                send_idx[d, : s_loc.size] = s_loc
+                e = (d + int(r)) % ndev
+                recv_pos[e, : d_loc.size] = d_loc
+            sched[int(r)] = (send_idx, recv_pos)
+        out.append(sched)
+    return out
+
+
 def gather_rows(topo: SparseTopology, rows) -> SparseTopology:
     """Cohort view of a topology on the device: the (C, D) ``nbr``/``w``
     and (C,) ``w_self`` rows of the global ids ``rows``.  ``nbr`` keeps

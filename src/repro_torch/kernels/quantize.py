@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.build import load_library
 
 INV_127 = float(np.float32(1.0) / np.float32(127.0))  # fl(1/127), exact as a double
@@ -73,12 +74,24 @@ def _check_rows(name, t, dtype):
                          f"shape {tuple(t.shape)} strides {t.stride()}")
 
 
+def codec_cost(r: int, c: int, noisy: bool, encode: bool = True):
+    """(flops, bytes) of one codec call over (R, C): quantize reads x (and
+    the noise) and writes the codes and the scale, with abs, max, divide,
+    round and clamp per element; dequantize reads the codes and the scale
+    and writes fp32, one multiply per element."""
+    if encode:
+        return 6 * r * c, r * c * (4 + 1 + (4 if noisy else 0)) + r * 4
+    return r * c, r * c * (1 + 4) + r * 4
+
+
 def quantize(x, noise=None):
     """x (R, C) fp32 [, noise (R, C) fp32 uniforms in [0, 1)] ->
-    (codes (R, C) int8, scale (R, 1) fp32)."""
-    if x.device.type == "cpu":
+    (codes (R, C) int8, scale (R, 1) fp32).  A ``meta`` tensor gets empty
+    results (the dry run's shape-only route); while a dry-run tally is
+    open the call charges :func:`codec_cost` on every device."""
+    if x.device.type == "cpu" and not cost.counting():
         return quantize_ref(x, noise)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta", "cpu"):
         raise ValueError(f"quantize: unsupported device {x.device}")
     _check_rows("quantize x", x, torch.float32)
     r, c = x.shape
@@ -86,8 +99,14 @@ def quantize(x, noise=None):
         _check_rows("quantize noise", noise, torch.float32)
         if tuple(noise.shape) != (r, c) or noise.device != x.device:
             raise ValueError("quantize: noise must match x's shape and device")
+    cost.charge("quantize", *codec_cost(r, c, noise is not None))
+    if x.device.type == "cpu":  # a dry-run tally is open: the twin's ops are not counted
+        with cost.uncounted():
+            return quantize_ref(x, noise)
     codes = torch.empty((r, c), dtype=torch.int8, device=x.device)
     scale = torch.empty((r, 1), dtype=torch.float32, device=x.device)
+    if x.device.type == "meta":
+        return codes, scale
     with torch.cuda.device(x.device):
         err = _entry("quantize_rows_f32")(
             x.data_ptr(), x.stride(0),
@@ -103,17 +122,24 @@ def quantize(x, noise=None):
 
 
 def dequantize(codes, scale):
-    """codes (R, C) int8, scale (R, 1) fp32 -> (R, C) fp32."""
-    if codes.device.type == "cpu":
+    """codes (R, C) int8, scale (R, 1) fp32 -> (R, C) fp32 (``meta`` and
+    dry-run tallies as :func:`quantize`)."""
+    if codes.device.type == "cpu" and not cost.counting():
         return dequantize_ref(codes, scale)
-    if codes.device.type != "cuda":
+    if codes.device.type not in ("cuda", "meta", "cpu"):
         raise ValueError(f"dequantize: unsupported device {codes.device}")
     _check_rows("dequantize codes", codes, torch.int8)
     r, c = codes.shape
     if (scale.dtype != torch.float32 or scale.numel() != r
             or scale.device != codes.device or not scale.is_contiguous()):
         raise ValueError("dequantize: scale must be (R, 1) contiguous fp32 on codes' device")
+    cost.charge("dequantize", *codec_cost(r, c, False, encode=False))
+    if codes.device.type == "cpu":
+        with cost.uncounted():
+            return dequantize_ref(codes, scale)
     out = torch.empty((r, c), dtype=torch.float32, device=codes.device)
+    if codes.device.type == "meta":
+        return out
     with torch.cuda.device(codes.device):
         err = _entry("dequantize_rows_f32")(
             codes.data_ptr(), codes.stride(0), scale.data_ptr(), r, c,

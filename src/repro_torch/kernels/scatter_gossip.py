@@ -35,6 +35,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.build import load_library
 
 
@@ -67,6 +68,13 @@ def sort_payload_rows(idx, val):
     return idx, val.gather(1, order)
 
 
+def payload_cost(n: int, p: int, r: int, k: int, s: int):
+    """(flops, bytes) of one payload merge: X read and out written once,
+    the (R, k) idx and val payloads and the (N, S) tables read once; a
+    subtract, a multiply and an add per operand entry."""
+    return 3 * n * s * k, 2 * n * p * 4 + r * k * 8 + n * s * 8
+
+
 def payload_mix_rows(X, idx, val, rows, w, *, sorted_idx: bool = False):
     """out[n] = X[n] + sum_s scatter(idx[rows[n, s]],
     (val[rows[n, s]] - X[n][idx[rows[n, s]]]) * w[n, s]).
@@ -74,11 +82,14 @@ def payload_mix_rows(X, idx, val, rows, w, *, sorted_idx: bool = False):
     X (N, P) fp32 and idx (R, k) int32 / val (R, k) fp32 with unit column
     stride; rows (N, S) int32 in [0, R); w (N, S) fp32.  sorted_idx: the
     caller's promise that every idx row is non-decreasing; without it the
-    rows are sorted first.  Returns a new (N, P) fp32 tensor.
+    rows are sorted first.  Returns a new (N, P) fp32 tensor.  A ``meta``
+    tensor gets an empty result (the dry run's shape-only route); while a
+    dry-run tally is open the call charges :func:`payload_cost` on every
+    device.
     """
-    if X.device.type == "cpu":
+    if X.device.type == "cpu" and not cost.counting():
         return payload_mix_rows_ref(X, idx, val, rows, w)
-    if X.device.type != "cuda":
+    if X.device.type not in ("cuda", "meta", "cpu"):
         raise ValueError(f"payload_mix_rows: unsupported device {X.device}")
     if (X.dtype != torch.float32 or val.dtype != torch.float32 or w.dtype != torch.float32
             or idx.dtype != torch.int32 or rows.dtype != torch.int32):
@@ -96,10 +107,17 @@ def payload_mix_rows(X, idx, val, rows, w, *, sorted_idx: bool = False):
     if (X.stride(1) != 1 or idx.stride(1) != 1 or val.stride(1) != 1
             or not rows.is_contiguous() or not w.is_contiguous()):
         raise ValueError("payload_mix_rows: rows of X, idx and val and the tables must be contiguous")
+    n, p = X.shape
+    cost.charge("payload_mix_rows", *payload_cost(n, p, idx.shape[0], idx.shape[1],
+                                                  rows.shape[1]))
+    if X.device.type == "cpu":  # a dry-run tally is open: the twin's ops are not counted
+        with cost.uncounted():
+            return payload_mix_rows_ref(X, idx, val, rows, w)
     if not sorted_idx:
         idx, val = sort_payload_rows(idx, val)
-    n, p = X.shape
     out = torch.empty((n, p), dtype=torch.float32, device=X.device)
+    if X.device.type == "meta":
+        return out
     with torch.cuda.device(X.device):
         err = _entry()(
             X.data_ptr(), X.stride(0), idx.data_ptr(), idx.stride(0),

@@ -18,7 +18,7 @@ under three counters:
   and temp bytes (the peak of live bytes above the arguments);
 
 and a :class:`~repro_torch.launch.roofline.CollectiveCounter` (zeros on
-one card).  The same counters read a real step on the CPU or the card
+one card, except for the sharded mixings below).  The same counters read a real step on the CPU or the card
 (:func:`count_step`), so the dry run's predictions can be held against a
 measured run.  The step is the reference's: the trainer's
 ``make_train_step`` over ``plan_nodes``' nodes (``topology`` above 5
@@ -27,12 +27,22 @@ vmapped ``decode_step``, on the logical production mesh of
 ``launch/mesh.py`` (16 node slots on one card).  Per-device numbers are
 the whole program's.
 
+The trainer's sharded mixings (``--mixing shard_map|sparse|quant|
+sparse+quant``) run one node per rank: the dry run starts torch's fake
+process group of as many ranks as nodes (:func:`node_group`, nothing
+moves) and executes rank 0's step, one node, on ``meta``; the collective
+counter then reads the c10d operand bytes per device, and the per-device
+numbers are rank 0's.  On ``meta`` the 'sparse' modes select their top-k
+by the exact sort: the histogram selector's survivors have a count that
+depends on the data, which a shape-only run cannot place.
+
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out results/torch_dryrun
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -287,6 +297,25 @@ def _batch(cfg, mode: str, n_nodes: int, B: int, S: int, device, seed: int):
     return batch
 
 
+@contextlib.contextmanager
+def node_group(n_nodes: int):
+    """A fake process group of ``n_nodes`` ranks for this process, rank 0
+    (torch's ``fake`` backend on the CPU and ``meta``: collectives return
+    at once and move nothing) — the group the sharded mixings run their
+    dry-run step in."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("node_group: a process group is already initialized")
+    dist.init_process_group("cpu:fake,meta:fake", store=FakeStore(), rank=0,
+                            world_size=n_nodes)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def build_step(cfg, mode: str, n_nodes: int, B: int, S: int, *, device="meta",
                mixing_impl: str = "roll", topology: str = "regular", budget: float = 0.1,
                seed: int = 0):
@@ -294,17 +323,21 @@ def build_step(cfg, mode: str, n_nodes: int, B: int, S: int, *, device="meta",
     forward: the loss without its gradient) over ``n_nodes`` stacked nodes
     of batch ``B`` and ``S`` positions (the cache depth for decode),
     with every input on ``device``: shapes only on ``meta``, seeded
-    random values elsewhere."""
+    random values elsewhere.  The sharded mixings build rank 0's step of a
+    group of ``n_nodes`` ranks (:func:`node_group`), over its one node."""
     if mode == "train":
-        if mixing_impl in SHARDED_MIXINGS:
-            raise NotImplementedError(
-                f"mixing_impl={mixing_impl!r} is the node-sharded gossip, not ported yet "
-                "(ROADMAP Queue 1 item 6)")
         opt = sgd(1e-2)
         topo = topology if n_nodes > 5 else "fully"
         tc = TrainConfig(n_nodes=n_nodes, topology=topo, degree=5, mixing_impl=mixing_impl,
                          budget=budget)
         step = make_train_step(cfg, opt, tc)
+        if mixing_impl in SHARDED_MIXINGS:
+            params = _stacked_params(cfg, 1, device, seed)
+            args = (params, opt.init(params), _batch(cfg, mode, 1, B, S, device, seed))
+            if topo == "dense":
+                return step, args + (torch.full((n_nodes, n_nodes), 1.0 / n_nodes,
+                                                device=device),)
+            return step, args
         if topo in ("ring", "regular") and mixing_impl == "roll":
             # the merge's tables are made once per (n, degree, device) and
             # cached: set-up, not a step's work
@@ -357,8 +390,12 @@ def build(arch: str, shape_name: str, multi_pod: bool = False, mixing_impl: str 
     cfg = get_config(arch).replace(**ov)
     shape = INPUT_SHAPES[shape_name]
     n_nodes, B = plan_nodes(shape, n_node_slots(mesh))
+    sharded = shape.mode == "train" and mixing_impl in SHARDED_MIXINGS
     meta = dict(arch=arch, shape=shape_name, mode=shape.mode, mesh=mesh.name,
-                n_nodes=n_nodes, batch_per_node=B, n_chips=1, dtype=cfg.dtype)
+                n_nodes=n_nodes, batch_per_node=B, n_chips=n_nodes if sharded else 1,
+                dtype=cfg.dtype)
+    if sharded:  # one node per rank: the record's per-device numbers are rank 0's
+        meta["nodes_per_device"] = 1
     if shape.mode == "train":
         tokens = shape.global_batch * (shape.seq_len if cfg.family != "cnn" else 1)
         meta["model_flops"] = model_flops(cfg, tokens, "train")
@@ -388,8 +425,10 @@ def roofline_record(meta: dict, readings: dict, cfg, shape):
         peak_flops=peak_flops_for(cfg.tdtype),
     )
     rec["roofline"] = r.to_dict()
-    # the model counts one node's traffic; the port holds every node on the card
-    fused = meta["n_nodes"] * fused_hbm_bytes(cfg, shape, meta["n_nodes"], tp=1)
+    # the model counts one node's traffic; the port holds every node on the
+    # card (one node per rank under the sharded mixings)
+    fused = meta.get("nodes_per_device", meta["n_nodes"]) * fused_hbm_bytes(
+        cfg, shape, meta["n_nodes"], tp=1)
     rec["roofline"]["hbm_bytes_fused"] = fused
     rec["roofline"]["t_memory_fused"] = fused / HBM_BW
     mem = readings["memory"]
@@ -406,9 +445,15 @@ def run_one(arch: str, shape_name: str, multi_pod: bool = False, mixing_impl: st
         return {"arch": arch, "shape": shape_name, "mesh": mesh_name,
                 "status": "skipped", "reason": reason}
     t0 = time.time()
-    fn, args, meta = build(arch, shape_name, multi_pod, mixing_impl, topology, overrides)
-    meta["overrides"] = {**(overrides or {}), "mixing_impl": mixing_impl, "topology": topology}
-    _, readings = count_step(fn, args)
+    shape = INPUT_SHAPES[shape_name]
+    group = contextlib.nullcontext()
+    if shape.mode == "train" and mixing_impl in SHARDED_MIXINGS:
+        group = node_group(plan_nodes(shape, n_node_slots(make_production_mesh(multi_pod=multi_pod)))[0])
+    with group:
+        fn, args, meta = build(arch, shape_name, multi_pod, mixing_impl, topology, overrides)
+        meta["overrides"] = {**(overrides or {}), "mixing_impl": mixing_impl,
+                             "topology": topology}
+        _, readings = count_step(fn, args)
     cfg_ov = {k: v for k, v in (overrides or {}).items() if k != "gossip_budget"}
     rec, r = roofline_record(meta, readings, get_config(arch).replace(**cfg_ov),
                              INPUT_SHAPES[shape_name])

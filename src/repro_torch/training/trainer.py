@@ -19,9 +19,16 @@ update is written in place.
 The reference cannot differentiate its two LM Pallas kernels (the
 sliding-window attention and the SSD chunk), so its step fails wherever
 a pass would take one; the port's step raises there too, on every device,
-and never trains through the kernels' plain twins instead.  The sharded
-mixings (``shard_map`` and the compressed ones) wait for ROADMAP Queue 1
-item 6.
+and never trains through the kernels' plain twins instead.
+
+The sharded mixings (``mixing_impl`` ``shard_map``, ``sparse``, ``quant``
+and ``sparse+quant``) run one node per rank of a ``torch.distributed``
+group of ``n_nodes`` ranks (``launch/shard.py`` starts them), as the JAX
+package's ``shard_map`` runs one node per device of its node axis: each
+rank's ``params`` are its own (1, ...) node, gossip crosses ranks by
+point-to-point exchanges (``core/mixing.py mix_circulant_shmap``; the
+compressed wire of ``mix_compressed_circulant_shmap``), and the mean loss
+is summed over the ranks.
 """
 from __future__ import annotations
 
@@ -32,7 +39,15 @@ from typing import List, Optional
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.mixing import mix_circulant, mix_dense, mix_fully
+from repro_torch.core.mixing import (
+    NodeShard,
+    ShardedDense,
+    mix_circulant,
+    mix_circulant_shmap,
+    mix_compressed_circulant_shmap,
+    mix_dense,
+    mix_fully,
+)
 from repro_torch.models.api import loss_fn as model_loss_fn
 from repro_torch.models.attention import swa_route
 from repro_torch.models.config import ModelConfig
@@ -41,6 +56,7 @@ from repro_torch.optim.optimizers import apply_updates_, clip_by_global_norm
 from repro_torch.utils.pytree import tree_leaves, tree_map, tree_unvector
 
 SHARDED_MIXINGS = ("shard_map", "sparse", "quant", "sparse+quant")
+COMPRESSED_MIXINGS = ("sparse", "quant", "sparse+quant")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,27 +64,34 @@ class TrainConfig:
     n_nodes: int = 16
     topology: str = "regular"       # ring | regular | fully | dense (W given per step)
     degree: int = 5
-    mixing_impl: str = "roll"        # roll (the merge kernel) | dense; shard_map, sparse,
-    #                                  quant, sparse+quant raise (ROADMAP Queue 1 item 6)
+    mixing_impl: str = "roll"        # roll (the merge kernel) | dense | shard_map | sparse |
+    #                                  quant | sparse+quant (one node per rank, compressed wire)
     budget: float = 0.1              # compression budget of the sharded sparse mixings
     grad_clip: Optional[float] = 1.0
     gossip_every: int = 1            # kept for parity: the reference's step ignores it too
     gossip_in_fp32: bool = True      # kept for parity: every mixing accumulates in fp32
 
 
-def _gossip(params, tc: TrainConfig, W=None):
-    """One gossip step over a node-stacked tree (or a flat (N, P) tensor)."""
+def _gossip(params, tc: TrainConfig, W=None, shard: Optional[NodeShard] = None):
+    """One gossip step over a node-stacked tree (or a flat (N, P) tensor);
+    with ``shard`` (the sharded mixings), over this rank's node."""
     if tc.topology == "fully":
+        if shard is not None:
+            return tree_map(lambda a: (shard.psum(a.float()) / shard.n).to(a.dtype), params)
         return mix_fully(params)
     if tc.mixing_impl == "dense" or tc.topology == "dense":
         if W is None:
             raise ValueError("dense mixing needs a mixing matrix W")
+        if shard is not None:
+            Ws = ShardedDense(shard.local(W), shard)
+            return tree_map(lambda a: Ws.apply(a.float()).to(a.dtype), params)
         return mix_dense(params, W)
-    if tc.mixing_impl in SHARDED_MIXINGS:
-        raise NotImplementedError(
-            f"mixing_impl={tc.mixing_impl!r} is the node-sharded gossip, not ported yet "
-            "(ROADMAP Queue 1 item 6)")
     degree = 2 if tc.topology == "ring" else tc.degree
+    if tc.mixing_impl in COMPRESSED_MIXINGS:
+        return mix_compressed_circulant_shmap(params, shard, degree, budget=tc.budget,
+                                              mode=tc.mixing_impl)
+    if tc.mixing_impl == "shard_map":
+        return mix_circulant_shmap(params, shard, degree)
     return mix_circulant(params, tc.n_nodes, degree)
 
 
@@ -184,7 +207,8 @@ def make_node_train_step(cfg: ModelConfig, optimizer: Optimizer, tc: TrainConfig
     return step
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optimizer, tc: TrainConfig):
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer, tc: TrainConfig,
+                    shard: Optional[NodeShard] = None):
     """Node-stacked D-PSGD round: ``train_step(params, opt_state, batch,
     W=None) -> (params, opt_state, mean loss over nodes)``.  batch leaves
     have shape (N, B, S); W is the (N, N) mixing matrix of
@@ -192,20 +216,42 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer, tc: TrainConfig):
     flat buffers (one per dtype) are copied into them first; the returned
     ``params`` are views of the mixed buffers (fresh ones for the
     circulant and dense mixings, the same ones, mixed in place, for
-    ``fully``)."""
+    ``fully``).
+
+    The sharded mixings run on each of ``tc.n_nodes`` ranks (``shard``,
+    default: the default group's), with this rank's node as N = 1: its
+    (1, ...) params and its (1, B, S) batch; the loss is the mean over
+    all nodes on every rank."""
     node_step = make_node_train_step(cfg, optimizer, tc)
+    if tc.mixing_impl in SHARDED_MIXINGS:
+        shard = shard or NodeShard.of_group(tc.n_nodes)
+        if shard.n != tc.n_nodes or shard.block != 1:
+            raise ValueError(f"mixing_impl={tc.mixing_impl!r} runs one node per rank: "
+                             f"n_nodes={tc.n_nodes} over {shard.ndev} ranks")
+    else:
+        shard = None
+
+    def mean_loss(losses):
+        if shard is None:
+            return losses.mean()
+        return shard.psum(losses.sum()) / shard.n
 
     def train_step(params, opt_state, batch, W=None):
         if flat_buffers(params) is None:
             params = stack_node_params(params)
         params, opt_state, losses = node_step(params, opt_state, batch)
+        if tc.mixing_impl in COMPRESSED_MIXINGS and tc.topology not in ("fully", "dense"):
+            # the compressed wire selects per leaf, as the JAX package's
+            # per-leaf shard_map does
+            return stack_node_params(_gossip(params, tc, shard=shard)), opt_state, \
+                mean_loss(losses)
         bufs = flat_buffers(params)
-        mixed = [_gossip(X, tc, W=W) for X in bufs]
+        mixed = [_gossip(X, tc, W=W, shard=shard) for X in bufs]
         if tc.topology == "fully":
             for X, m in zip(bufs, mixed):
                 X.copy_(m)
-            return params, opt_state, losses.mean()
+            return params, opt_state, mean_loss(losses)
         like = tree_map(lambda a: a[0], params)
-        return _views({m.dtype: m for m in mixed}, like), opt_state, losses.mean()
+        return _views({m.dtype: m for m in mixed}, like), opt_state, mean_loss(losses)
 
     return train_step

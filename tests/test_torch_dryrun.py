@@ -237,9 +237,36 @@ def test_sanitize_specs_drops_sharding_the_mesh_does_not_divide():
     assert dr.sanitize_specs(shapes, pspecs, make_production_mesh()) == pspecs
 
 
-def test_sharded_mixing_raises_naming_item_6():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dr.main(["--arch", "smollm-135m", "--shape", "train_4k", "--mixing", "shard_map"])
+def test_sharded_mixing_raises_naming_item_6(tmp_path):
+    """The sharded mixings (ROADMAP Queue 1 item 6, once refused here) dry
+    run as rank 0 of a fake 16-rank group on ``meta``: one node's step,
+    whose collective counter reads the point-to-point operand bytes of
+    the circulant's links, each the node's parameters (for 'quant' int8
+    codes of the zero-padded rows and one fp32 scale per row), plus the
+    mean loss's all-reduce."""
+    from repro_torch.core.topology import circulant_offsets
+    from repro_torch.launch.mesh import make_production_mesh, n_node_slots
+    from repro_torch.launch.specs import plan_nodes
+
+    arch, shape = "smollm-135m", "train_4k"
+    n = plan_nodes(INPUT_SHAPES[shape], n_node_slots(make_production_mesh()))[0]
+    links = sum(1 if 2 * o % n == 0 else 2 for o in circulant_offsets(n, 5))
+    leaves = tree_leaves(dr._stacked_params(dr.get_config(arch), 1, "meta", 0))
+
+    def codes(leaf):  # rows of min(2^20, size) elements, zero-padded
+        row = min(1 << 20, leaf.numel())
+        rows = -(-leaf.numel() // row)
+        return rows * row + 4 * rows
+
+    for impl, per_leaf in (("shard_map", lambda l: l.numel() * l.element_size()),
+                           ("quant", codes)):
+        out = tmp_path / f"{impl}.json"
+        dr.main(["--arch", arch, "--shape", shape, "--mixing", impl, "--out", str(out)])
+        rec = json.loads(out.read_text())
+        assert rec["status"] == "ok" and rec["n_chips"] == n and rec["nodes_per_device"] == 1
+        assert rec["coll"]["collective-permute"] == links * sum(per_leaf(l) for l in leaves)
+        assert rec["coll"]["all-reduce"] == 4  # the loss summed over the ranks
+    assert not torch.distributed.is_initialized()
 
 
 def test_skip_records_equal_the_references():

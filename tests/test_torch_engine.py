@@ -255,8 +255,19 @@ def _leaves(tree):
     dict(shard_devices=2), dict(sharing="topk", shard_devices=4),
 ])
 def test_validate_raises_not_implemented(knob):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        DLConfig(**knob).validate()
+    """The node-sharding knobs (once refused as not ported) validate as
+    the JAX package's: accepted where it accepts them, ``ValueError``
+    where it raises (faults are single-host there)."""
+    jknob = dict(knob)
+    if "faults" in jknob:
+        jknob["faults"] = JFaultPlan(crashes=knob["faults"].crashes)
+    try:
+        JDLConfig(**jknob).validate()
+    except ValueError:
+        with pytest.raises(ValueError, match="single-host"):
+            DLConfig(**knob).validate()
+    else:
+        assert DLConfig(**knob).validate().shard_devices == knob["shard_devices"]
 
 
 # the scheduler, cohort and batch-keying knobs (unported until the local

@@ -113,8 +113,11 @@ def test_dlconfig_accepts_what_the_reference_accepts(name):
 
 @pytest.mark.parametrize("knobs,item", [(dict(shard_devices=2), 6)])
 def test_unported_fault_paths_raise_not_implemented(knobs, item):
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        DLConfig(n_nodes=12, faults=FaultPlan(msg_loss=0.1), **knobs).validate()
+    """Faults under node sharding (ROADMAP Queue 1 item 6, ported): both
+    packages refuse them with ``ValueError`` (faults are single-host)."""
+    for cfg, plan in ((JDLConfig, JFaultPlan), (DLConfig, FaultPlan)):
+        with pytest.raises(ValueError, match="single-host"):
+            cfg(n_nodes=12, faults=plan(msg_loss=0.1), **knobs).validate()
 
 
 PLAN = dict(crashes=((3, 2, 5), (7, 4, -1), (0, 0, 1)))

@@ -62,14 +62,15 @@ SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.ker
                  "repro_torch.configs.qwen2_vl_72b", "repro_torch.launch.mesh",
                  "repro_torch.launch.specs", "repro_torch.launch.analytic",
                  "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
-                 "repro_torch.kernels.cost")
+                 "repro_torch.kernels.cost", "repro_torch.launch.shard")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
 def test_module_is_covered_and_builds_nothing_at_import(module):
     """Each module of the slice is among the files checked above, and a
     fresh interpreter imports it with the kernel builder disabled, loads no
-    ``jax`` or ``repro`` module on the way, and creates no build output."""
+    ``jax`` or ``repro`` module on the way, touches no CUDA device, starts
+    no process group, and creates no build output."""
     path = ROOT / "src" / (module.replace(".", "/") + ".py")
     assert path in FILES
     code = (
@@ -79,6 +80,9 @@ def test_module_is_covered_and_builds_nothing_at_import(module):
         f"import {module}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "assert not bad, bad\n"
+        "import torch, torch.distributed as dist\n"
+        "assert not torch.cuda.is_initialized(), 'a device was touched at import'\n"
+        "assert not dist.is_initialized(), 'a process group was started at import'\n"
     )
     before = set(b.name for b in (ROOT / "build").glob("**/*")) if (ROOT / "build").exists() else set()
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -1164,3 +1164,62 @@ def test_dry_run_peak_of_a_smoke_train_step_on_gpu():
     pred, _, measured = _smoke_train_on_card(_card())
     ratio = (pred["memory"]["argument_bytes"] + pred["memory"]["temp_bytes"]) / measured
     assert 0.8 <= ratio <= 1.25, ratio
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["gather", "ppermute"])
+@pytest.mark.parametrize("rank", [0, 3])
+def test_sharded_merge_table_on_gpu(backend, rank):
+    """The sharded merge on the card: one rank's local stack L (the
+    all-gathered rows, or its own rows and the rows the slot exchange
+    brings, emulated here from every rank's plan) through its cached
+    local index table, kernel against twin within 1e-5, and bitwise the
+    single-device kernel's rows on the same table (ppermute's local table
+    keeps the table's slot order)."""
+    from repro_torch.core.mixing import NodeShard, shard_topology
+
+    dev = _card()
+    n, S, P = 64, 4, 4099
+    b = n // S
+    st = ttop.SparseTopology.from_graph(ttop.Graph.random_regular(n, 5, seed=2))
+    X = torch.randn((n, P), generator=torch.Generator(device=dev).manual_seed(rank), device=dev)
+    W = shard_topology(st, NodeShard(S, b, rank), dev, backend)
+    rows, w = W.merge_tables()
+    if backend == "gather":
+        L = X
+    else:
+        plans = [W.sched.plan(r, b) for r in range(S)]
+        inbox = {}
+        for r, pl in enumerate(plans):
+            send = X[r * b:(r + 1) * b][torch.as_tensor(pl.send_rows, device=dev)]
+            for peer, lo, hi, tag in pl.sends:
+                inbox[(r, peer, tag)] = send[lo:hi]
+        L = torch.cat([X[rank * b:(rank + 1) * b]]
+                      + [inbox[(peer, rank, tag)] for peer, lo, hi, tag in plans[rank].recvs])
+    before = gm.gossip_mix_rows.launches
+    got = gm.gossip_mix_rows(L, rows, w)
+    torch.cuda.synchronize()
+    assert gm.gossip_mix_rows.launches == before + 1
+    torch.testing.assert_close(got, gm.gossip_mix_rows_ref(L, rows, w), rtol=1e-5, atol=1e-5)
+    whole = gm.gossip_mix_rows(X, *st.to(dev).merge_tables())
+    assert torch.equal(got, whole[rank * b:(rank + 1) * b])
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_equal_one_device():
+    """Two ranks sharing the card over gloo (each transfer staged through
+    pinned host memory): the gather backend's run of the reference's
+    consensus configuration is bitwise the single-device card run."""
+    import _torch_shard_ranks as ranks
+    from repro_torch.launch import shard
+
+    dev = _card()
+    kw = dict(topology="regular", degree=5)
+    got = shard.run(ranks.engine_cases, 2, {"gather": kw}, 8, None, device="cuda",
+                    timeout=300)["gather"]
+    eng = ranks.consensus_engine(dev, **kw)
+    eng.run(rounds=8, log=False)
+    assert got["backend"] == "gather"
+    assert (got["X"] == eng.X.cpu().numpy()).all()
+    assert got["bytes_sent"] == eng.bytes_sent and got["sim_time_s"] == eng.sim_time_s
+    assert [h["acc_mean"] for h in got["history"]] == [h["acc_mean"] for h in eng.history]

@@ -136,11 +136,20 @@ def test_cpu_tensor_takes_the_twin_and_leaves_the_counters():
 
 
 def test_wrong_device_type_raises():
+    """A device that is neither the CPU, the card nor ``meta`` raises;
+    ``meta`` (the dry run's shape-only route) gets empty results."""
+    from types import SimpleNamespace
+
+    other = SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="unsupported device"):
-        tq.quantize(torch.ones((2, 4), device="meta"))
+        tq.quantize(other)
     with pytest.raises(ValueError, match="unsupported device"):
-        tq.dequantize(torch.ones((2, 4), dtype=torch.int8, device="meta"),
-                      torch.ones((2, 1), device="meta"))
+        tq.dequantize(other, other)
+    codes, scale = tq.quantize(torch.ones((2, 4), device="meta"))
+    assert (codes.device.type, codes.dtype, tuple(codes.shape)) == ("meta", torch.int8, (2, 4))
+    assert (scale.dtype, tuple(scale.shape)) == (torch.float32, (2, 1))
+    out = tq.dequantize(codes, scale)
+    assert (out.device.type, out.dtype, tuple(out.shape)) == ("meta", torch.float32, (2, 4))
 
 
 # --- the CUDA kernel's column partition (csrc/quantize.cu), modelled in

@@ -171,5 +171,7 @@ def test_cpu_tensor_takes_the_twin_and_leaves_the_counter():
     x, idx, val, w = _stack(3, 40, 2, 5, 1)
     sg.payload_mix_nodes(torch.tensor(x), torch.tensor(idx), torch.tensor(val), torch.tensor(w))
     assert sg.payload_mix_rows.launches == before
+    from types import SimpleNamespace
+
     with pytest.raises(ValueError, match="unsupported device"):
-        sg.payload_mix_rows(*(torch.ones((2, 2), device="meta") for _ in range(5)))
+        sg.payload_mix_rows(SimpleNamespace(device=torch.device("xpu")), *([None] * 4))

@@ -148,9 +148,8 @@ def test_pairwise_partners_are_valid_neighbours():
 
 
 # accept/reject parity of DLConfig.validate over the semantics knobs (the
-# unported knob, shard_devices, raises NotImplementedError and stands in
-# test_torch_engine.py; backend='processes' is held to the reference in
-# test_torch_runtime.py)
+# sharding rules are held to the reference in test_torch_shard_engine.py;
+# backend='processes' in test_torch_runtime.py)
 ACCEPT = {
     "local": dict(semantics="local"),
     "local dense": dict(semantics="local", topology="fully"),

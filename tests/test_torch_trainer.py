@@ -294,6 +294,11 @@ def test_trains_where_the_reference_stays_off_its_kernel(window, seq):
 
 @pytest.mark.parametrize("impl", ["shard_map", "sparse", "quant", "sparse+quant"])
 def test_sharded_mixings_raise_and_cite_item_6(impl):
+    """The sharded mixings (ported with ROADMAP Queue 1 item 6) run one
+    node per rank of a process group; outside one they raise and name
+    the launcher (``tests/test_torch_shard_trainer.py`` runs them)."""
     tc = ttrainer.TrainConfig(n_nodes=4, topology="regular", degree=2, mixing_impl=impl)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ttrainer._gossip(torch.zeros(4, 3), tc)
+    with pytest.raises(RuntimeError, match="torch.distributed"):
+        ttrainer._gossip(torch.zeros(1, 3), tc)
+    with pytest.raises(RuntimeError, match="launch.shard.run"):
+        ttrainer.make_train_step(tsmoke(ARCH), tmake_opt("sgd", LR), tc)
