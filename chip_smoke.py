@@ -21,6 +21,10 @@ Phases (any failure raises and the exit code is non-zero):
    sharing over a 5-regular overlay of 1024 nodes, GN-LeNet at width 32,
    8 rounds — with each kernel's launch count read around that run alone,
    then one more round under ``torch.profiler`` (device time by op);
+4b. legacy: the legacy per-round dispatch (``chunk_rounds=0``) against
+   the chunk-1 spans on the main path's configuration at N=256, 8 rounds:
+   parameters bitwise, bytes, sim time and eval rounds equal, one merge
+   launch a round, rounds/s of both;
 5. topk path: the same engine with TopK sharing at a 10% budget and int8
    payloads, 8 rounds, launch counts read around that run alone, then one
    profiled round and the share step timed alone;
@@ -104,6 +108,7 @@ Phases (any failure raises and the exit code is non-zero):
    with ``scaled_dot_product_attention`` under the same band mask as the
    attention kernel's yardstick, and with ``is_causal=True`` beside it
    where the window covers every key (the backend each took is printed);
+   the SSD kernel also at zamba2-1.2b's prefill shape;
 11. serve: SmolLM-135M (the published config: 30 layers, bf16, window 4096)
    served through ``repro_torch.serving.ServingEngine.generate`` with the
    sliding-window kernel, 8 requests of 4096-token prompts and 32 greedy new
@@ -137,9 +142,12 @@ Phases (any failure raises and the exit code is non-zero):
    embeddings under three position streams (text, a 16 x 16 image grid,
    text); whisper-tiny uncut (4 + 4 layers, 1500 frames): the encoder,
    the cross cache, a 2 x 448 teacher-forced decoder pass and 32 greedy
-   steps against the real cross cache; then each smoke config's greedy
-   ids card == CPU (whisper's through ``encdec_cache_init`` and
-   ``decode_step``);
+   steps against the real cross cache; zamba2-1.2b uncut (38 Mamba2
+   layers, bf16, the SSD kernel): the 2 x 512 forward with 38 SSD
+   launches, the serving engine's token-by-token cache and 4 greedy
+   steps, and its smoke config's forward card (kernel) == CPU (twin);
+   then each smoke config's greedy ids card == CPU (whisper's through
+   ``encdec_cache_init`` and ``decode_step``);
 17. dryrun: ``repro_torch.launch.dryrun`` on the meta device at published
    width (llama4-maverick train_4k, deepseek-v2 decode_32k: no device byte
    allocated, their roofline rows), then four calibration cases (C1 the
@@ -157,11 +165,16 @@ Phases (any failure raises and the exit code is non-zero):
    in the ranks' blocks), one merge launch per rank per round, the round
    walls and the bytes sent and staged per rank against the schedule's
    prediction; (b)
-   [shard-reference]: secure and top-k int8 payloads over ppermute at N=16,
-   the ranks on the card against the ranks on the CPU within 1e-4; (c) the
-   trainer's 'shard_map' and 'quant' mixings, one node per rank (SmolLM-135M
-   smoke, 2 steps), against the single-process step on the card within
-   1e-5.
+   [shard-reference]: secure and top-k int8 payloads over ppermute, random-k
+   payloads (alone and under churn), CHOCO-SGD and the dynamic overlay over
+   gather at N=16, the ranks on the card against the ranks on the CPU
+   within 1e-4; (c) the trainer's 'shard_map', 'quant', 'sparse' and
+   'sparse+quant' mixings, one node per rank (SmolLM-135M smoke, 2 steps),
+   against the single-process step on the card within 1e-5;
+19. shard-nccl: one rank under nccl (``launch.shard.run(..., 1,
+   device="cuda")``) on the [shard] configuration for 2 rounds, both
+   backends: the collectives' unstaged branch (no staged byte), bitwise
+   the single-device run.
 
 The line before the last is a JSON object with one entry per TPU kernel
 (13); the last line is ``{"ok": true, "device": {...}}``.
@@ -210,7 +223,7 @@ PASS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms
 # further checks of a kernel kept under its JSON entry: the fine histogram
 # pass, the quantize noise form, and the callers of the sampled strategies
 FORMS = ("fine_pass", "noise_form", "dynamic_table", "randk_rows", "strided_rows", "prng_noise",
-         "full_width", "cohort_rows", "cold_rows", "block_rows", "trainer_rows")
+         "full_width", "cohort_rows", "cold_rows", "block_rows", "trainer_rows", "hybrid_prefill")
 PROFILER_BOOKKEEPING = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
 PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_times' padding
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
@@ -1068,6 +1081,73 @@ def phase_main_path():
     return launches, eng
 
 
+# [legacy]: bench_engine.py part 1's larger N on the main path's configuration
+LEGACY_N, LEGACY_ROUNDS = 256, 8
+
+
+def phase_legacy():
+    """[legacy]: the legacy per-round dispatch (``chunk_rounds=0``:
+    ``SyncScheduler.run_legacy_round``, the round's batches gathered on
+    the host, one ``train_and_mix`` call and one host read a round)
+    against the chunk-1 spans on the main path's configuration at
+    N=LEGACY_N, 8 rounds, from the same parameters.  The same kernels run
+    in the same order on the same values, so the parameters are expected
+    bitwise equal (any difference fails past 1e-4); bytes, sim time and
+    the history's rounds equal; one merge launch a round in each; rounds
+    per second by wall clock after the first round (evals at rounds 0, 4
+    and 7 included in both)."""
+    import torch
+    from repro_torch.utils.pytree import tree_map
+
+    t = time.time()
+    engs = {"chunk 1": main_path_engine(LEGACY_N, 32, 32768, rounds=LEGACY_ROUNDS, chunk=1,
+                                        eval_every=4, device=None)}
+    engs["legacy"] = main_path_engine(LEGACY_N, 32, 32768, rounds=LEGACY_ROUNDS, chunk=0,
+                                      eval_every=4, device=None,
+                                      init_params=tree_map(torch.clone, engs["chunk 1"].params))
+    print(f"[legacy] two engines built in {time.time() - t:.2f} s: N={LEGACY_N} "
+          f"P={engs['legacy'].n_params}; chunk {engs['legacy'].chunk} against "
+          f"{engs['chunk 1'].chunk}", flush=True)
+    if engs["legacy"].chunk != 0:
+        raise AssertionError("chunk_rounds=0 does not select the legacy dispatch")
+    by_path = {}
+    for name, eng in engs.items():
+        sch = eng.scheduler
+        attr = "run_legacy_round" if eng.chunk == 0 else "run_span"
+        inner, stamps = getattr(sch, attr), []
+
+        def stamped(*a, inner=inner, stamps=stamps):
+            inner(*a)
+            stamps.append(time.time())
+
+        setattr(sch, attr, stamped)
+        torch.cuda.synchronize()
+        reset_launches()
+        eng.run(log=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        want = {**{k: 0 for k in launches}, "gossip_mix_rows": LEGACY_ROUNDS}
+        rps = (len(stamps) - 1) / (stamps[-1] - stamps[0])
+        print(f"[legacy] {name}: {len(stamps)} {attr} calls; launches={launches}; rounds/s "
+              f"after the first round (wall clock, evals included): {rps:.4f} ({CARD})",
+              flush=True)
+        if launches != want or len(stamps) != LEGACY_ROUNDS:
+            raise AssertionError(f"[legacy] {name}: launches {launches} in {len(stamps)} calls")
+        by_path["legacy" if eng.chunk == 0 else "legacy-chunk1"] = launches
+    a, b = engs["legacy"], engs["chunk 1"]
+    err = float((a.X - b.X).abs().max())
+    same = bool(torch.equal(a.X, b.X))
+    rounds = ([h["round"] for h in a.history], [h["round"] for h in b.history])
+    print(f"[legacy] max |X_legacy - X_chunk1| {err} (bitwise: {same}); bytes_sent "
+          f"{a.bytes_sent} / {b.bytes_sent}; sim_time_s {a.sim_time_s} / {b.sim_time_s}; "
+          f"eval rounds {rounds[0]} / {rounds[1]}; acc_mean "
+          f"{[h['acc_mean'] for h in a.history]}", flush=True)
+    if not (err <= 1e-4 and bool(torch.isfinite(a.X).all()) and a.bytes_sent == b.bytes_sent
+            and a.sim_time_s == b.sim_time_s and rounds[0] == rounds[1] == [0, 4, 7]):
+        raise AssertionError("[legacy] the legacy dispatch disagrees with the chunk-1 run")
+    return by_path
+
+
 def kernel_wrappers():
     """Each kernel's wrapper, which counts the kernel's launches."""
     from repro_torch.kernels import gossip_mix as gm
@@ -1775,7 +1855,10 @@ SWA_SHAPES = (  # (B, S, H, Hkv, D, window, dtype)
     ("window cuts", (1, 8192, 9, 3, 64, 4096, "bfloat16")),
     ("fp32", (2, 2048, 9, 3, 64, 1024, "float32")),
     ("ragged", (3, 200, 6, 2, 40, 100, "float32")))
-SSD_SHAPES = ((32, 256, 32, 64, 128), (3, 16, 2, 8, 8))  # (G, L, H, P, N)
+# (G, L, H, P, N): Mamba2-370M's forward, the smoke chunk's, and zamba2-1.2b's
+# 2 x 512 prefill in [zoo] (2 x 2 chunk cells, 64 heads of dim 64, state 64)
+SSD_SHAPES = ((32, 256, 32, 64, 128), (3, 16, 2, 8, 8), (4, 256, 64, 64, 64))
+SSD_FORMS = {(4, 256, 64, 64, 64): "hybrid_prefill"}  # kept under the JSON entry
 
 
 def swa_bound(b, s, h, hkv, d, window, item):
@@ -1809,7 +1892,8 @@ def phase_lm_kernels():
     window cuts (S 8192), in fp32 and at a small ragged shape, with
     ``scaled_dot_product_attention`` under the same band mask as its
     yardstick; the SSD chunk step at the Mamba2-370M forward's shape (G 32
-    chunk cells, L 256, H 32, P 64, N 128) and at the smoke chunk's."""
+    chunk cells, L 256, H 32, P 64, N 128), at the smoke chunk's and at
+    the zamba2-1.2b prefill's (G 4, L 256, H 64, P 64, N 64)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ssd_chunk as ssd
@@ -1862,6 +1946,8 @@ def phase_lm_kernels():
               f"tensor rate with 3 products per multiply-add ({rec['bound_tf32x3_by']})",
               flush=True)
         out.setdefault("ssd_chunk", rec)
+        if (g, l, h, p, n) in SSD_FORMS:
+            out["ssd_chunk"][SSD_FORMS[g, l, h, p, n]] = rec
     torch.cuda.empty_cache()
     return out
 
@@ -2435,6 +2521,108 @@ def zoo_whisper(dev):
         raise AssertionError(f"[zoo] {WHISPER}: non-finite output or bad shapes")
 
 
+ZAMBA2 = "zamba2-1.2b"
+
+
+def zoo_zamba2(dev, prompts):
+    """zamba2-1.2b uncut (38 Mamba2 layers, the shared attention block
+    every 6, published widths, bf16, ``ssm_impl="pallas"``): the 2 x 512
+    prompt's full-sequence forward (the chunked SSD: one SSD kernel launch
+    per Mamba2 layer, at 2 x 2 chunk cells of 64 heads, dim 64, state 64),
+    timed as the prefill; the serving engine's cache over the same prompt
+    (token by token, as the reference's engine serves the recurrent
+    families: no SSD launch) and 4 greedy steps from its last logits,
+    with those logits against the forward's last position; then the smoke
+    config (fp32) on the card, which takes the kernel, against the CPU,
+    which takes its twin: the forward's logits within 1e-3 of the scale,
+    its argmax ids and the serving engine's greedy ids equal."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.models.api import forward, init_params, param_count
+    from repro_torch.models.hybrid import _plan
+    from repro_torch.serving import ServeConfig, ServingEngine
+    from repro_torch.utils.pytree import tree_map, tree_size
+
+    cfg = get_config(ZAMBA2).replace(ssm_impl="pallas")
+    n_seg, per, tail = _plan(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = tree_size(params)
+    toks = torch.as_tensor(prompts % cfg.vocab, device=dev)
+    torch.cuda.synchronize()
+    t_init = time.time() - t
+    with torch.no_grad():
+        forward(params, cfg, {"tokens": toks[:, :cfg.ssm_chunk]})  # warm-up: one chunk
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.time()
+        logits, _ = forward(params, cfg, {"tokens": toks})
+        torch.cuda.synchronize()
+        t1 = time.time()
+        launches = read_launches()
+    want = {**{k: 0 for k in launches}, "ssd_chunk": cfg.n_layers}  # one per Mamba2 layer
+    eng = ServingEngine(cfg, ServeConfig(batch=ZOO_B, max_len=ZOO_S + ZOO_NEW), params, dev)
+    reset_launches()
+    t2 = time.time()
+    last, cache = eng.prefill(toks)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    ids = eng.decode(last, cache, ZOO_S, ZOO_NEW)
+    torch.cuda.synchronize()
+    t4 = time.time()
+    serve_launches = read_launches()
+    finite = bool(torch.isfinite(logits).all()) and bool(torch.isfinite(last).all())
+    fwd_last = logits[:, -1].float()
+    gap = float((last[:, -1].float() - fwd_last).abs().max())
+    scale = float(fwd_last.abs().max())
+    agree = float((last[:, -1].argmax(-1) == fwd_last.argmax(-1)).float().mean())
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[zoo] {ZAMBA2}: {cfg.n_layers} Mamba2 layers ({n_seg} segments of {per} and the "
+          f"shared attention block, {tail} after), d_model {cfg.d_model}, {n_params} parameters "
+          f"({cfg.dtype}; the published config has {param_count(get_config(ZAMBA2))}), "
+          f"ssm_impl {cfg.ssm_impl}, init {t_init:.2f} s; prefill {ZOO_B}x{ZOO_S} "
+          f"(full-sequence forward) {(t1 - t0) * 1e3} ms, launches {launches}; the serving "
+          f"engine's token-by-token cache over the prompt {(t3 - t2) * 1e3} ms, decode "
+          f"{(t4 - t3) * 1e3 / ZOO_NEW} ms per step, launches {serve_launches}; its last "
+          f"prompt logits against the forward's: max |diff| {gap} of scale {scale} (bf16), "
+          f"argmax agreement {agree}; logits finite {finite}; ids {ids.cpu().tolist()}; peak "
+          f"max_memory_allocated={peak} B ({CARD})", flush=True)
+    if not (finite and tuple(ids.shape) == (ZOO_B, ZOO_NEW) and launches == want
+            and set(serve_launches.values()) == {0}):
+        raise AssertionError(f"[zoo] {ZAMBA2}: non-finite logits, bad ids or launches "
+                             f"{launches} (want {want})")
+    del eng, cache, params, logits, last
+    release()
+    # the smoke config: the kernel on the card, its twin on the CPU
+    cfg = get_smoke_config(ZAMBA2).replace(ssm_impl="pallas")
+    gen = torch.Generator().manual_seed(1)
+    params = init_params(cfg, gen)
+    toks = torch.as_tensor(np.random.default_rng(8).integers(1, cfg.vocab, (2, 2 * cfg.ssm_chunk)))
+    got = {}
+    for d in ("cpu", dev):
+        on = tree_map(lambda a: a.to(d), params)
+        reset_launches()
+        with torch.no_grad():
+            lg, _ = forward(on, cfg, {"tokens": toks.to(d)})
+        eng = ServingEngine(cfg, ServeConfig(batch=2, max_len=24), on, d)
+        gen_ids = eng.generate(toks[:, :16].to(d), max_new=8)
+        got[str(d)] = (lg.float().cpu(), gen_ids.cpu(), read_launches()["ssd_chunk"])
+    (lc, ic, nc), (lg, ig, ng) = got["cpu"], got[str(dev)]
+    err = float((lg - lc).abs().max())
+    tol = 1e-3 * float(lc.abs().max())
+    same_argmax = bool(torch.equal(lg.argmax(-1), lc.argmax(-1)))
+    same_gen = bool(torch.equal(ig, ic))
+    print(f"[zoo] {ZAMBA2} smoke ({cfg.n_layers} layers, d_model {cfg.d_model}, fp32): forward "
+          f"logits card (SSD kernel, {ng} launches) vs cpu (twin, {nc}): max |diff| {err} "
+          f"(bound {tol}); argmax ids equal {same_argmax}; serving greedy ids card == cpu "
+          f"{same_gen} ({CARD})", flush=True)
+    if not (err <= tol and same_argmax and same_gen and ng == cfg.n_layers and nc == 0):
+        raise AssertionError(f"[zoo] {ZAMBA2} smoke: card and CPU disagree")
+    return launches
+
+
 def phase_zoo():
     """The ported zoo configs on the card: qwen3-32b, qwen2-72b,
     mistral-large-123b and qwen2-vl-72b at their published widths,
@@ -2445,8 +2633,10 @@ def phase_zoo():
     prefill of 2 x 512 tokens and 4 greedy decode steps timed, with peak
     memory and finiteness; deepseek's chunked MLA route against its naive
     one; qwen2-vl's prefill from stub embeddings under three position
-    streams; whisper-tiny uncut; then each smoke config's greedy ids on
-    the card equal to the CPU's from the same parameters."""
+    streams; whisper-tiny uncut; zamba2-1.2b uncut with the SSD kernel
+    (``zoo_zamba2``); then each smoke config's greedy ids on the card
+    equal to the CPU's from the same parameters.  Returns zamba2's
+    prefill launches."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, get_smoke_config
@@ -2461,7 +2651,8 @@ def phase_zoo():
           + f"); {LLAMA4}'s 2 layers are one dense and one MoE layer (moe_every 2), "
           f"{DEEPSEEK}'s the dense first layer and one MoE layer; {WHISPER} uncut "
           f"({get_config(WHISPER).n_enc_layers} + {get_config(WHISPER).n_layers} layers, "
-          f"{get_config(WHISPER).enc_seq} frames); random weights; prompts {ZOO_B} x {ZOO_S}, "
+          f"{get_config(WHISPER).enc_seq} frames) and {ZAMBA2} uncut "
+          f"({get_config(ZAMBA2).n_layers} Mamba2 layers); random weights; prompts {ZOO_B} x {ZOO_S}, "
           f"{ZOO_NEW} greedy tokens; widths, heads, vocab, experts and dtype (bf16) as "
           f"published ({CARD})", flush=True)
     prompts = np.random.default_rng(7).integers(1, 32768, (ZOO_B, ZOO_S))
@@ -2503,6 +2694,8 @@ def phase_zoo():
     zoo_whisper(dev)
     release()
     torch.backends.cuda.matmul.allow_tf32 = False
+    zamba2_launches = zoo_zamba2(dev, prompts)
+    release()
     for arch in ZOO_LM + (WHISPER,):
         cfg = get_smoke_config(arch)
         gen = torch.Generator().manual_seed(1)
@@ -2524,6 +2717,7 @@ def phase_zoo():
               f"ids card == cpu: {same} ({CARD})", flush=True)
         if not same:
             raise AssertionError(f"[zoo] {arch} smoke: card and CPU greedy ids differ")
+    return zamba2_launches
 
 
 POP_N, POP_C, MILLION_N = 100_000, 8192, 1_000_000
@@ -3164,7 +3358,14 @@ SHARD_REF_CASES = {  # [shard-reference]: (knobs, launches per round on the card
                                 shard_backend="ppermute"),
                            {"abs_histogram_rows": 2, "quantize": 1, "dequantize": 1,
                             "payload_mix_rows": 1}),
+    # tests/test_torch_shard_engine.py CASES (the gather backend, gloo's 'auto')
+    "payload_randomk": (dict(sharing="randomk", payload="on"), {"payload_mix_rows": 1}),
+    "choco": (dict(sharing="choco"), {"abs_histogram_rows": 2, "gossip_mix_rows": 1}),
+    "payload_churn": (dict(sharing="randomk", payload="on", participation=0.6),
+                      {"payload_mix_rows": 1}),
+    "dynamic_sparse": (dict(topology="dynamic"), {"gossip_mix_rows": 1}),
 }
+SHARD_TRAIN_MODES = ("shard_map", "quant", "sparse", "sparse+quant")
 SHARD_TRAIN = dict(arch="smollm-135m", n=SHARD_S, degree=3, batch=2, seq=32, steps=2, lr=3e-2)
 
 
@@ -3281,7 +3482,7 @@ def _shard_rank_reference(device):
         runs = {}
         for role, dev in (("card", device), ("cpu", "cpu")):
             eng = consensus_engine(dev, init, shard_devices=SHARD_S, **knobs)
-            if knobs.get("sharing") == "topk":  # the card's selector on the CPU too
+            if knobs.get("sharing") in ("topk", "choco"):  # the card's selector on the CPU too
                 eng.sharing = eng.steps.sharing = dataclasses.replace(eng.sharing,
                                                                      selector="hist")
             reset_launches()
@@ -3296,7 +3497,7 @@ def _shard_rank_reference(device):
 
 def _shard_rank_trainer(device):
     """One rank's part (c): the sharded LM trainer, one node per rank, for
-    'shard_map' and 'quant'; returns the losses and the gathered
+    each of SHARD_TRAIN_MODES; returns the losses and the gathered
     parameters of each."""
     import torch
     from repro_torch.configs import get_smoke_config
@@ -3310,7 +3511,7 @@ def _shard_rank_trainer(device):
     sh = NodeShard.of_group(c["n"])
     params0, batches = shard_train_inputs(torch.device(device))
     out = {}
-    for mode in ("shard_map", "quant"):
+    for mode in SHARD_TRAIN_MODES:
         tc = trainer.TrainConfig(n_nodes=c["n"], topology="regular", degree=c["degree"],
                                  mixing_impl=mode, grad_clip=1.0)
         opt = make_optimizer("sgd", c["lr"])
@@ -3359,15 +3560,19 @@ def shard_rank(ref, device):
             "trainer": _shard_rank_trainer(device)}
 
 
-def plain_compressed_mix(stacked, degree):
-    """The single-process reference of the trainer's 'quant' mixing over
-    a node-stacked tree: per node and leaf, rows of min(2^20, size)
-    elements, int8 codes and a scale per row (the port's codec), and
-    x_i' = x_i + sum over the circulant's links of w * (deq_j - x_i)."""
+def plain_compressed_mix(stacked, degree, mode, budget):
+    """The single-process reference of the trainer's compressed mixings
+    over a node-stacked tree: per node and leaf, rows of min(2^20, size)
+    elements; 'sparse' keeps the top ``budget`` fraction of each row by
+    magnitude (``sharing._topk_idx``, the card's histogram selector, as the
+    ranks select), 'quant' takes int8 codes and a scale per row of the
+    values (the port's codec); then x_i' = x_i + sum over the circulant's
+    links of w * (deq_j - x_i), at the sender's kept coordinates."""
     import torch
     import torch.nn.functional as F
     from repro_torch.core.compression import dequantize_int8, quantize_int8
     from repro_torch.core.mixing import _circulant_links
+    from repro_torch.core.sharing import _topk_idx
     from repro_torch.utils.pytree import tree_map
 
     def leaf(a):
@@ -3375,13 +3580,22 @@ def plain_compressed_mix(stacked, degree):
         size = a[0].numel()
         R = min(1 << 20, size)
         rows = F.pad(a.reshape(n, -1).float(), (0, (-size) % R)).reshape(n, -1, R)
-        deq = dequantize_int8(*quantize_int8(rows))
+        idx, vals = None, rows
+        if "sparse" in mode:
+            k = max(1, int(budget * R))
+            idx = torch.stack([_topk_idx(rows[i].abs(), k).long() for i in range(n)])
+            vals = rows.gather(2, idx)
+        deq = dequantize_int8(*quantize_int8(vals)) if "quant" in mode else vals
         out = []
         for i in range(n):
             links, _ = _circulant_links(n, degree, i)
             acc = rows[i].clone()
             for _, frm, w in links:
-                acc = acc + w * (deq[frm] - rows[i])
+                if idx is None:
+                    acc = acc + w * (deq[frm] - rows[i])
+                else:
+                    acc = acc.scatter_add(1, idx[frm],
+                                          w * (deq[frm] - rows[i].gather(1, idx[frm])))
             out.append(acc.reshape(-1)[:size].reshape(a.shape[1:]))
         return torch.stack(out).to(a.dtype)
 
@@ -3404,13 +3618,15 @@ def phase_shard():
     launch per rank per round; per rank the round walls, the
     bytes sent and staged per round against the schedule's prediction.
     (b) [shard-reference]: N=16, the reference's consensus model, secure
-    and top-k int8 payloads over ppermute (the histogram selector on both
-    devices), the ranks on the card against the ranks on the CPU within
-    1e-4.
-    (c) the trainer's 'shard_map' and 'quant' mixings, one node per rank
-    (SmolLM-135M smoke, 2 steps) against the single-process step on the
-    card ('roll'; the plain compressed mix) within 1e-5 (int8 code flips
-    at rounding boundaries bounded as in tests/test_torch_shard_trainer)."""
+    and top-k int8 payloads over ppermute, and over gather random-k
+    payloads (alone and under churn), CHOCO-SGD and the dynamic overlay
+    (the histogram selector on both devices), the ranks on the card
+    against the ranks on the CPU within 1e-4.
+    (c) the trainer's 'shard_map', 'quant', 'sparse' and 'sparse+quant'
+    mixings, one node per rank (SmolLM-135M smoke, 2 steps) against the
+    single-process step on the card ('roll'; the plain compressed mix)
+    within 1e-5 (int8 code flips at rounding boundaries and top-k
+    threshold ties bounded as in tests/test_torch_shard_trainer)."""
     import shutil
     import tempfile
 
@@ -3497,7 +3713,7 @@ def phase_shard():
     cfg = get_smoke_config(c["arch"])
     params0, batches = shard_train_inputs(torch.device("cuda"))
     w_nbr = 1.0 / (c["degree"] + 1)
-    for mode in ("shard_map", "quant"):
+    for mode in SHARD_TRAIN_MODES:
         opt = make_optimizer("sgd", c["lr"])
         tc = trainer.TrainConfig(n_nodes=c["n"], topology="regular", degree=c["degree"],
                                  grad_clip=1.0)
@@ -3510,7 +3726,8 @@ def phase_shard():
                 params, state, loss = step(params, state, bt)
             else:
                 params, state, node_losses = node_step(params, state, bt)
-                params, loss = plain_compressed_mix(params, c["degree"]), node_losses.mean()
+                params = plain_compressed_mix(params, c["degree"], mode, tc.budget)
+                loss = node_losses.mean()
             losses.append(float(loss))
         got_losses, got, got_launches = res["trainer"][mode]
         errs = [np.abs(g.float().numpy() - w.float().cpu().numpy())
@@ -3519,10 +3736,16 @@ def phase_shard():
         loss_err = max(abs(a - b) for a, b in zip(got_losses, losses))
         if mode == "shard_map":
             good = err <= 1e-5
-        else:  # a value at a rounding boundary may take the next int8 code
+        else:
+            # a value at a rounding boundary may take the next int8 code (a
+            # step of w * max|x| / 127); a magnitude at the top-k threshold
+            # may be kept on one side only (a step of w * |x_j - x_i|, at
+            # most w * 2.02 * max|x| with its code): on at most 1e-4 of the
+            # elements
             flips = sum(int((e > 1e-5).sum()) for e in errs) / sum(e.size for e in errs)
+            step = 2.02 if "sparse" in mode else 1.01 / 127
             good = flips <= 1e-4 and all(
-                float(e.max()) <= 1e-5 + w_nbr * float(w.float().abs().max()) / 127 * 1.01
+                float(e.max()) <= 1e-5 + w_nbr * float(w.float().abs().max()) * step
                 for e, w in zip(errs, tree_leaves(params)))
         good &= loss_err <= 1e-5
         print(f"[shard-train] {mode}: losses {got_losses} (one process {losses}); max |params - "
@@ -3532,6 +3755,73 @@ def phase_shard():
         launches[f"shard-train-{mode}"] = got_launches
     if not ok:
         raise AssertionError("[shard] a sharded run disagrees with its reference")
+    return launches
+
+
+# [shard-nccl]: one rank under nccl on the [shard] configuration
+NCCL_ROUNDS = 2
+
+
+def shard_nccl_rank(device):
+    """The one rank of [shard-nccl]: the main path at full width with
+    ``shard_devices=1`` under both backends, and the single-device engine
+    in the same process; each sharded run's transport counters, launches
+    and its parameters against the single-device run's."""
+    import torch
+
+    def engine(**knobs):
+        return main_path_engine(MAIN_N, 32, 32768, rounds=NCCL_ROUNDS, chunk=1, eval_every=100,
+                                device=device, **knobs)
+
+    one = engine()
+    one.run(log=False)
+    out = {}
+    for backend in ("gather", "auto"):
+        eng = engine(shard_devices=1, shard_backend=backend)
+        torch.cuda.synchronize()
+        reset_launches()
+        eng.run(log=False)
+        torch.cuda.synchronize()
+        out[backend] = dict(
+            group=eng.shard.backend, resolved=eng._shard_backend, device=str(eng.X.device),
+            staged=eng.shard.staged_bytes, sent=eng.shard.sent_bytes, launches=read_launches(),
+            bitwise=bool(torch.equal(eng.X, one.X)),
+            max_abs_err=float((eng.X - one.X).abs().max()),
+            metrics=(eng.bytes_sent == one.bytes_sent and eng.sim_time_s == one.sim_time_s))
+        del eng
+        release()
+    return out
+
+
+def phase_shard_nccl():
+    """[shard-nccl]: one rank through ``launch.shard.run(..., 1,
+    device="cuda")``, which takes nccl where there are as many cards as
+    ranks, on the [shard] configuration (N=1024, GN-LeNet width 32,
+    5-regular, full sharing) for NCCL_ROUNDS rounds, shard_backend 'gather'
+    and 'auto' (ppermute under nccl): the collectives take the unstaged
+    branch (``staged_bytes == 0``), one merge launch a round, parameters,
+    bytes and sim time bitwise the single-device run's.  One card: no
+    second rank and no NVLink transfer."""
+    from repro_torch.launch import shard
+
+    t = time.time()
+    res = shard.run(shard_nccl_rank, 1, device="cuda", timeout=600)
+    ok, launches = True, {}
+    for backend, r in res.items():
+        want = {**{k: 0 for k in r["launches"]}, "gossip_mix_rows": NCCL_ROUNDS}
+        good = (r["group"] == "nccl" and r["staged"] == 0 and r["bitwise"] and r["metrics"]
+                and r["launches"] == want and r["device"].startswith("cuda"))
+        print(f"[shard-nccl] shard_backend {backend} -> {r['resolved']} on a {r['group']} group "
+              f"of 1 rank ({r['device']}): staged_bytes {r['staged']}, sent_bytes {r['sent']}; "
+              f"launches {r['launches']}; max |X - X_one| {r['max_abs_err']} (bitwise "
+              f"{r['bitwise']}); bytes and sim time equal {r['metrics']}: "
+              f"{'ok' if good else 'FAILED'}", flush=True)
+        ok &= good
+        launches[f"shard-nccl-{backend}"] = r["launches"]
+    print(f"[shard-nccl] ran in {time.time() - t:.1f} s (spawn included); one card, so no "
+          f"second rank and no NVLink transfer ({CARD})", flush=True)
+    if not ok:
+        raise AssertionError("[shard-nccl] the nccl rank disagrees with the single-device run")
     return launches
 
 
@@ -3577,6 +3867,8 @@ def main():
     phase_profile(eng, "main")
     del eng
     release()
+    legacy_launches = phase_legacy()
+    release()
     topk_launches, eng = phase_topk_path()
     phase_profile(eng, "topk")
     time_share_step(eng, "topk")
@@ -3593,7 +3885,8 @@ def main():
     release()
     sampled = phase_sampled_kernels()
     release()
-    by_path = {"main": launches_main, "topk": topk_launches, "secure": secure_launches}
+    by_path = {"main": launches_main, "topk": topk_launches, "secure": secure_launches,
+               **legacy_launches}
     for path, run in (("dynamic", phase_dynamic_path), ("randomk", phase_randomk_path),
                       ("quant", phase_quant_path)):
         by_path[path], eng = run()
@@ -3636,6 +3929,8 @@ def main():
     release()
     by_path.update(phase_shard())
     release()
+    by_path.update(phase_shard_nccl())
+    release()
     phase_reference()
     release()
     phase_examples()
@@ -3652,13 +3947,13 @@ def main():
     train_launches = phase_train()
     train_merge = phase_train_merge()
     train_ref_launches = phase_train_reference()
-    phase_zoo()
+    zoo_launches = phase_zoo()
     release()
     dryrun_launches = phase_dryrun()
 
     by_path.update({"entry": entry_launches, "serve": serve_launches, "forward": forward_launches,
                     "train": train_launches, "train-reference": train_ref_launches,
-                    "dryrun": dryrun_launches})
+                    "zoo-zamba2": zoo_launches, "dryrun": dryrun_launches})
     checks["gossip_mix_rows"] = checks.pop("main")
     checks["gossip_mix_rows"]["dynamic_table"] = sampled["dynamic_table"]
     checks["payload_mix_rows"]["randk_rows"] = sampled["randk_rows"]

@@ -1,8 +1,10 @@
 """Compression module (paper §2.2): the per-row int8 codec carried in
 gossip messages, through the hand-written codec kernels
-(``kernels/quantize.py``), and the cold population-row codec of the async
-cohort path (``DLConfig.cold_dtype``).  Codes and scales are bitwise the
-JAX package's ``core/compression.py`` under ``jit``.
+(``kernels/quantize.py``), the packed int4 codec and the delta index codec
+(plain torch: the JAX package has no kernel for them either), and the cold
+population-row codec of the async cohort path (``DLConfig.cold_dtype``).
+Codes and scales are bitwise the JAX package's ``core/compression.py``
+under ``jit``.
 
 Stochastic rounding (``key`` given) takes its noise from
 ``repro_torch.prng.uniform``, bitwise ``jax.random.uniform``, into the
@@ -10,10 +12,15 @@ quantize kernel's noise form.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch import prng
 from repro_torch.kernels.quantize import dequantize, quantize
+
+# fl(1/7): XLA turns the int4 codec's division by the constant 7 into a
+# multiplication by its fp32 reciprocal, as it does for int8's 127
+INV_7 = float(np.float32(1.0) / np.float32(7.0))
 
 
 def quantize_int8(x, key=None):
@@ -44,6 +51,47 @@ def dequantize_int8(codes, scale):
     flat = dequantize(codes.reshape(-1, codes.shape[-1]).contiguous(),
                       scale.reshape(-1, 1).contiguous())
     return flat.reshape(codes.shape)
+
+
+def quantize_int4(x, key=None):
+    """Packed int4 symmetric quantization, per row: codes clip(round(x /
+    scale), ±7) (or floor(x / scale + u) with a ``prng`` key, u drawn over
+    x's shape), biased by 8 and packed two to a byte, even columns in the
+    low nibble.
+
+    x: (..., P) float, P even -> (packed uint8 (..., P/2), scale (..., 1)
+    float32)."""
+    if x.shape[-1] % 2:
+        raise ValueError(f"quantize_int4 packs pairs of columns; the last axis of "
+                         f"{tuple(x.shape)} is odd")
+    xf = x.to(torch.float32)
+    scale = torch.clamp_min(xf.abs().amax(dim=-1, keepdim=True) * INV_7, 1e-12)
+    y = xf / scale
+    if key is not None:
+        y = torch.floor(y + prng.uniform(key, y.shape, device=x.device))
+    else:
+        y = torch.round(y)
+    q = (torch.nan_to_num(torch.clamp(y, -7, 7), nan=0.0).to(torch.int8) + 8).to(torch.uint8)
+    return q[..., 0::2] | (q[..., 1::2] << 4), scale
+
+
+def dequantize_int4(packed, scale):
+    """packed uint8 (..., P/2), scale (..., 1) -> (..., P) float32."""
+    lo = (packed & 0xF).to(torch.int32) - 8
+    hi = (packed >> 4).to(torch.int32) - 8
+    q = torch.stack([lo, hi], dim=-1).reshape(*packed.shape[:-1], -1)
+    return q.to(torch.float32) * scale
+
+
+def delta_encode_indices(idx):
+    """Sorted-index delta encoding: each row sorted, then the first index
+    and the gaps between neighbours (small integers on the wire)."""
+    idx = torch.sort(idx, dim=-1).values
+    return torch.diff(idx, dim=-1, prepend=torch.zeros_like(idx[..., :1]))
+
+
+def delta_decode_indices(deltas):
+    return torch.cumsum(deltas, dim=-1, dtype=deltas.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -112,7 +112,8 @@ class DLConfig:
     eval_every: int = 10
     seed: int = 0
     results_dir: Optional[str] = None
-    # rounds per host sync of the metrics (0 behaves as 1)
+    # rounds per host sync of the metrics; 0 = the legacy per-round
+    # dispatch (SyncScheduler.run_legacy_round)
     chunk_rounds: int = 8
     mixing: str = "auto"       # auto | sparse | dense
     semantics: str = "sync"    # sync | local | async
@@ -570,9 +571,13 @@ class RoundEngine:
             self._batch_key = prng.fold_in(base_key, 0x0BA7)
         else:
             self._dev_lens = self._dev_parts_pad = self._batch_key = None
-        self.chunk = max(dl.chunk_rounds, 1)
-        if self.sampler is not None and self.mix_mode == "dense":
-            self.chunk = max(1, min(self.chunk, _W_STACK_BYTES_CAP // (4 * n * n)))
+        if dl.chunk_rounds <= 0:  # the legacy per-round dispatch
+            self.chunk = 0
+        elif self.sampler is not None and self.mix_mode == "dense":
+            # the dense dynamic overlay stages an (R, N, N) W stack a span
+            self.chunk = max(1, min(dl.chunk_rounds, _W_STACK_BYTES_CAP // (4 * n * n)))
+        else:
+            self.chunk = dl.chunk_rounds
         self.steps = RoundSteps(
             loss_fn=loss_fn,
             opt=optimizer,
@@ -719,7 +724,9 @@ class RoundEngine:
     def run(self, rounds: Optional[int] = None, log: bool = True) -> List[Dict]:
         """Execute ``rounds`` scheduler steps (rounds, or event cohorts
         under ``semantics="async"``) with an eval every ``eval_every``
-        steps and after the last."""
+        steps and after the last: spans of ``chunk`` rounds, or with
+        ``chunk == 0`` the legacy per-round dispatch, one
+        ``scheduler.run_legacy_round`` a round."""
         dl = self.dl
         rounds = rounds if rounds is not None else dl.rounds
         tx, ty = self.batcher.test_batch()
@@ -727,17 +734,23 @@ class RoundEngine:
         ty = torch.as_tensor(ty, device=self.device).long()
         ev = max(dl.eval_every, 1)
         t0 = time.time()
-        rnd = self._start_round
-        while rnd < rounds:
-            nxt = -(-rnd // ev) * ev  # next eval round >= rnd
-            if nxt >= rounds:
-                nxt = rounds - 1
-            end = nxt + 1
-            while rnd < end:
-                r = min(self.chunk, end - rnd)
-                self.scheduler.run_span(rnd, r)
-                rnd += r
-            self._record(nxt, tx, ty, t0, log)
+        if self.chunk == 0:  # legacy per-round dispatch (sync only)
+            for rnd in range(self._start_round, rounds):
+                self.scheduler.run_legacy_round(rnd)
+                if rnd % ev == 0 or rnd == rounds - 1:
+                    self._record(rnd, tx, ty, t0, log)
+        else:
+            rnd = self._start_round
+            while rnd < rounds:
+                nxt = -(-rnd // ev) * ev  # next eval round >= rnd
+                if nxt >= rounds:
+                    nxt = rounds - 1
+                end = nxt + 1
+                while rnd < end:
+                    r = min(self.chunk, end - rnd)
+                    self.scheduler.run_span(rnd, r)
+                    rnd += r
+                self._record(nxt, tx, ty, t0, log)
         self.rounds_done = max(rounds, self._start_round)
         self._dump_results()
         return self.history

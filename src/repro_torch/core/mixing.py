@@ -802,3 +802,9 @@ def mix_compressed_circulant_shmap(stacked, shard: Optional[NodeShard], degree: 
         return out.reshape(-1)[:size].reshape(x.shape).to(x.dtype)
 
     return tree_map(f, stacked)
+
+
+def mixing_bytes_per_node(graph, n_params: int, bytes_per_param: int = 4) -> float:
+    """Mean bytes each node sends a round under full sharing (the paper's
+    cumulative-bytes metric), over a :class:`~repro_torch.core.topology.Graph`."""
+    return float(graph.degrees().mean()) * n_params * bytes_per_param

@@ -120,6 +120,9 @@ class Mapping:
     def machine(self, node: int) -> int:
         return node % self.n_machines
 
+    def same_machine(self, a: int, b: int) -> bool:
+        return self.machine(a) == self.machine(b)
+
 
 @dataclasses.dataclass
 class NetworkModel:
@@ -130,6 +133,10 @@ class NetworkModel:
     compute_time_s: Optional[np.ndarray] = None
     # per-round runtime overhead, added once in round_time()
     overhead_s: float = 0.0
+
+    def link(self, a: int, b: int) -> LinkSpec:
+        """The link between nodes ``a`` and ``b``: loopback on one machine."""
+        return self.local if self.mapping.same_machine(a, b) else self.remote
 
     def matrices(self, dtype=np.float32):
         """(latency_s, goodput_bps) as (N, N) matrices over ordered pairs."""
@@ -171,6 +178,11 @@ class NetworkModel:
             self.node_times(graph, bytes_per_edge, compute_time_s,
                             parallel_sends).max()
         ) + self.overhead_s
+
+    def experiment_time(self, graph: Graph, bytes_per_edge: float,
+                        compute_time_s, rounds: int) -> float:
+        """``rounds`` synchronous rounds of :meth:`round_time` each."""
+        return rounds * self.round_time(graph, bytes_per_edge, compute_time_s)
 
 
 def paper_testbed(n_nodes: int) -> NetworkModel:

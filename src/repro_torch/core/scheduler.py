@@ -27,6 +27,9 @@ the absolute round, each staged on the device once per span.  Two host
 reads are added on the async path: the clock rebase check after each
 span, and under ``selection="hier"`` whether a step's slice is covered by
 the selected segments (the reference's ``lax.cond``), once per step.
+``chunk_rounds=0`` (synchronous only) is the JAX package's legacy
+per-round dispatch, :meth:`SyncScheduler.run_legacy_round`: the round's
+batches gathered on the host, and one host read of its metrics a round.
 
 Node-sharded runs (``shard_devices``, the synchronous scheduler only):
 every rank stages the span's global host inputs as the single-device
@@ -295,6 +298,12 @@ class Scheduler:
     def run_span(self, start: int, n_rounds: int) -> None:
         raise NotImplementedError
 
+    def run_legacy_round(self, rnd: int) -> None:
+        raise ValueError(
+            f"legacy per-round dispatch (chunk_rounds=0) supports "
+            f"semantics='sync' only, not {self.semantics!r}"
+        )
+
     def eval_params(self):
         """The parameter tree evaluation runs on: the engine's, except on
         the async cohort path with compressed cold rows, which decodes."""
@@ -337,6 +346,28 @@ class SyncScheduler(Scheduler):
             eng.bytes_sent += nb
             eng.sim_time_s += t
         self._accum_faults(stats)
+
+    def run_legacy_round(self, rnd: int) -> None:
+        """The per-round dispatch of ``chunk_rounds=0`` (the JAX package's
+        baseline): the round's full batches gathered on the host and
+        copied to the device, its mixing operand and participation mask
+        staged alone, one ``train_and_mix`` call, and one host read of its
+        metrics.  Same draws as the spans, so the same trajectory."""
+        eng = self.eng
+        dl = eng.dl
+        idx = eng.batcher.round_indices(rnd, dl.local_steps)  # (L, N, B)
+        bx = torch.as_tensor(eng.batcher.x[idx], device=eng.device)
+        by = torch.as_tensor(eng.batcher.y[idx], device=eng.device).long()
+        W, live = self.stage_topology(rnd, 1)[0]
+        act = None
+        if dl.participation < 1.0:
+            m = self.participation_mask(rnd, 1)[0]
+            act = (torch.as_tensor(m, device=eng.device), m)
+        eng.X, eng.opt_state, eng.share_state, nb, t, fstats = eng.steps.train_and_mix(
+            eng.X, eng.opt_state, eng.share_state, bx, by, W, rnd, act, live)
+        eng.bytes_sent += nb
+        eng.sim_time_s += _read([t])[0]
+        self._accum_faults([fstats])
 
 
 class LocalScheduler(Scheduler):

@@ -1,8 +1,9 @@
 """Graph module: the overlay topology (numpy; tables bitwise those of the
 JAX package's ``core/topology.py``).
 
-* :class:`Graph` — dense (N, N) boolean adjacency, for construction and
-  file I/O.
+* :class:`Graph` — dense (N, N) boolean adjacency, for construction,
+  file I/O (edge lists, adjacency-list JSON), changes at run time and
+  spectral analysis.
 * :class:`SparseTopology` — padded (N, D) neighbor and Metropolis-Hastings
   weight tables, the form sparse overlays are executed in.  Built in numpy;
   the engine moves it to the device once with :meth:`SparseTopology.to`.
@@ -12,6 +13,7 @@ JAX package's ``core/topology.py``).
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -82,12 +84,56 @@ class Graph:
         np.fill_diagonal(adj, False)
         return Graph(adj)
 
+    @staticmethod
+    def from_adjacency_json(path: str) -> "Graph":
+        """A graph from a JSON object mapping each node id to its list of
+        neighbour ids."""
+        with open(path) as f:
+            d = json.load(f)
+        n = len(d)
+        adj = np.zeros((n, n), bool)
+        for k, nbrs in d.items():
+            for j in nbrs:
+                adj[int(k), int(j)] = adj[int(j), int(k)] = True
+        np.fill_diagonal(adj, False)
+        return Graph(adj)
+
+    def to_edge_list(self, path: str) -> None:
+        """Write one ``a b`` line per edge, a < b, in row-major order."""
+        with open(path, "w") as f:
+            for a, b in zip(*np.nonzero(np.triu(self.adj))):
+                f.write(f"{a} {b}\n")
+
     @property
     def n(self) -> int:
         return self.adj.shape[0]
 
     def degrees(self) -> np.ndarray:
         return self.adj.sum(1)
+
+    def neighbors(self, i: int) -> np.ndarray:
+        return np.nonzero(self.adj[i])[0]
+
+    def is_connected(self) -> bool:
+        """Whether every node is reachable from node 0."""
+        seen = {0}
+        frontier = [0]
+        while frontier:
+            i = frontier.pop()
+            for j in np.nonzero(self.adj[i])[0]:
+                if j not in seen:
+                    seen.add(int(j))
+                    frontier.append(int(j))
+        return len(seen) == self.n
+
+    # the graph can change at run time (an engine builds its tables from it
+    # when it is constructed)
+    def add_edge(self, a: int, b: int) -> None:
+        if a != b:
+            self.adj[a, b] = self.adj[b, a] = True
+
+    def remove_edge(self, a: int, b: int) -> None:
+        self.adj[a, b] = self.adj[b, a] = False
 
     def neighbor_table(self) -> Tuple[np.ndarray, np.ndarray]:
         return neighbor_table(self.adj)
@@ -102,6 +148,19 @@ class Graph:
         W[ii, jj] = 1.0 / (1.0 + np.maximum(deg[ii], deg[jj]))
         W[np.arange(n), np.arange(n)] = 1.0 - W.sum(1)
         return W
+
+    def uniform_weights(self) -> np.ndarray:
+        """W_ij = 1/(deg_i+1): row-stochastic equal-neighbour weights."""
+        n = self.n
+        W = self.adj / (self.degrees()[:, None] + 1.0)
+        W[np.arange(n), np.arange(n)] = 1.0 / (self.degrees() + 1.0)
+        return W
+
+    def spectral_gap(self) -> float:
+        """1 - the second largest eigenvalue modulus of the
+        Metropolis-Hastings matrix: how fast gossip mixes on the graph."""
+        w = np.linalg.eigvalsh(self.metropolis_hastings())
+        return 1.0 - max(abs(w[0]), abs(w[-2]))
 
 
 def neighbor_table(adj: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

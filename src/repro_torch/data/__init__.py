@@ -1,3 +1,3 @@
 from repro_torch.data.datasets import SyntheticImages, SyntheticLM, TeacherImages, make_dataset
-from repro_torch.data.loader import NodeBatcher
-from repro_torch.data.partition import sharding_partition
+from repro_torch.data.loader import NodeBatcher, node_batch_indices
+from repro_torch.data.partition import classes_per_node, iid_partition, sharding_partition

@@ -36,6 +36,35 @@ def tree_size(tree) -> int:
     return sum(math.prod(l.shape) for l in tree_leaves(tree))
 
 
+def tree_bytes(tree) -> int:
+    """Total bytes of a tree's leaves."""
+    return sum(l.numel() * l.element_size() for l in tree_leaves(tree))
+
+
+def tree_map_with_path_names(fn, tree):
+    """:func:`tree_map` where ``fn(name, leaf)`` also receives the leaf's
+    path: its dict keys and sequence indices joined by ``/``."""
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(t[k], path + (str(k),)) for k in t}
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(v, path + (str(i),)) for i, v in enumerate(t))
+        return fn("/".join(path), t)
+
+    return walk(tree, ())
+
+
+def segment_starts(sorted_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """(num_segments,) int32 start offset of each segment id in a sorted
+    id vector, on its device.  Ids past the last segment are not counted
+    and negative ids count as segment 0, as in ``jnp.bincount``."""
+    ids = sorted_ids.long().clamp(0, num_segments)
+    counts = torch.bincount(ids, minlength=num_segments + 1)[:num_segments]
+    starts = torch.zeros((num_segments,), dtype=torch.int32, device=sorted_ids.device)
+    starts[1:] = torch.cumsum(counts, 0)[:-1]
+    return starts
+
+
 def tree_vector(tree) -> torch.Tensor:
     """Flatten a tree of tensors into a single 1-D fp32 vector."""
     return torch.cat([l.reshape(-1).to(torch.float32) for l in tree_leaves(tree)])

@@ -67,3 +67,27 @@ def test_empty_partition_raises():
     x = np.zeros((4, 2), np.float32)
     with pytest.raises(ValueError, match="empty partition"):
         tloader.NodeBatcher(x, np.zeros(4, np.int32), [np.arange(4), np.arange(0)], 2)
+
+
+@pytest.mark.parametrize("n_nodes,seed,n", [(8, 0, 256), (16, 5, 250), (3, 11, 17)])
+def test_iid_partition_and_classes_per_node_bitwise(n_nodes, seed, n):
+    y = jds.make_dataset("cifar10", n_train=n, n_test=8, seed=seed).train_y
+    pa = jpart.iid_partition(y, n_nodes, seed=seed)
+    pb = tpart.iid_partition(y, n_nodes, seed=seed)
+    assert len(pa) == len(pb) == n_nodes
+    for x, z in zip(pa, pb):
+        np.testing.assert_array_equal(x, z)
+        assert x.dtype == z.dtype
+    np.testing.assert_array_equal(np.sort(np.concatenate(pb)), np.arange(n))
+    for parts in (pb, tpart.sharding_partition(y, n_nodes, 2, seed=seed)):
+        np.testing.assert_array_equal(jpart.classes_per_node(y, parts),
+                                      tpart.classes_per_node(y, parts))
+
+
+def test_sharding_limits_classes_as_in_the_paper():
+    """The reference's substrate check: 2-sharding gives a node far fewer
+    classes than an IID part."""
+    y = jds.make_dataset("cifar10", n_train=2000, n_test=8).train_y
+    iid = tpart.classes_per_node(y, tpart.iid_partition(y, 20))
+    shard = tpart.classes_per_node(y, tpart.sharding_partition(y, 20, 2))
+    assert iid.mean() > 8 and shard.mean() < 5

@@ -62,7 +62,10 @@ SLICE_MODULES = ("repro_torch.prng", "repro_torch.core.secure", "repro_torch.ker
                  "repro_torch.configs.qwen2_vl_72b", "repro_torch.launch.mesh",
                  "repro_torch.launch.specs", "repro_torch.launch.analytic",
                  "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
-                 "repro_torch.kernels.cost", "repro_torch.launch.shard")
+                 "repro_torch.kernels.cost", "repro_torch.launch.shard",
+                 "repro_torch.core.__init__", "repro_torch.data.__init__",
+                 "repro_torch.utils.__init__", "repro_torch.data.partition",
+                 "repro_torch.utils.pytree")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -731,9 +731,10 @@ def test_payload_merge_on_random_k_rows_on_gpu(sampler):
     assert torch.equal(got, sg.payload_mix_rows_ref(X, idx, val, rows, w))
 
 
-def _quickstart_engine(device, init=None, **knobs):
-    """The quickstart configuration at N=16, GN-LeNet width 8, 2 rounds,
-    LAN model, with ``knobs`` (``faults`` a FaultPlan keyword dict)."""
+def _quickstart_engine(device, init=None, n=16, **knobs):
+    """The quickstart configuration at N=``n`` (16), GN-LeNet width 8, 2
+    rounds, LAN model, with ``knobs`` (``faults`` a FaultPlan keyword
+    dict; engine knobs override the defaults)."""
     from repro_torch import DLConfig, FaultPlan, RoundEngine
     from repro_torch.data import NodeBatcher, make_dataset, sharding_partition
     from repro_torch.models.cnn import cnn_init
@@ -743,9 +744,9 @@ def _quickstart_engine(device, init=None, **knobs):
     if "faults" in knobs:
         knobs = {**knobs, "faults": FaultPlan(**knobs["faults"])}
     ds = make_dataset("cifar10", n_train=2048, n_test=128)
-    parts = sharding_partition(ds.train_y, 16, 2, seed=0)
-    dl = DLConfig(n_nodes=16, topology="regular", degree=5, local_steps=2, batch_size=8,
-                  rounds=2, chunk_rounds=2, eval_every=1, network="lan", **knobs)
+    parts = sharding_partition(ds.train_y, n, 2, seed=0)
+    dl = DLConfig(**{**dict(n_nodes=n, topology="regular", degree=5, local_steps=2, batch_size=8,
+                            rounds=2, chunk_rounds=2, eval_every=1, network="lan"), **knobs})
     return RoundEngine(dl, lambda g: cnn_init(g, width=8), loss_fn, acc_fn,
                        make_optimizer("sgd", 0.05),
                        NodeBatcher(ds.train_x, ds.train_y, parts, 8, seed=0),
@@ -1223,3 +1224,55 @@ def test_two_gloo_ranks_on_the_card_equal_one_device():
     assert (got["X"] == eng.X.cpu().numpy()).all()
     assert got["bytes_sent"] == eng.bytes_sent and got["sim_time_s"] == eng.sim_time_s
     assert [h["acc_mean"] for h in got["history"]] == [h["acc_mean"] for h in eng.history]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("knobs,launches", [
+    (dict(), {"gossip_mix_rows": 4}),
+    (dict(participation=0.7), {"gossip_mix_rows": 4}),
+    (dict(sharing="randomk", budget=0.25, payload="on"), {"payload_mix_rows": 4}),
+], ids=["full", "churn", "randomk-payload"])
+def test_legacy_dispatch_on_gpu_is_bitwise_the_chunk_one_run(knobs, launches):
+    """``chunk_rounds=0`` on the card: one merge launch a round, and the
+    parameters, bytes, sim time and history of the chunk-1 run, bitwise,
+    from the same parameters at N=8."""
+    from repro_torch.utils.pytree import tree_map
+
+    dev = _card()
+    cfg = dict(n=8, rounds=4, eval_every=3, **knobs)
+    span = _quickstart_engine(dev, chunk_rounds=1, **cfg)
+    legacy = _quickstart_engine(dev, init=tree_map(torch.clone, span.params), chunk_rounds=0,
+                                **cfg)
+    assert (legacy.chunk, span.chunk) == (0, 1)
+    wrappers = {"gossip_mix_rows": gm.gossip_mix_rows, "payload_mix_rows": sg.payload_mix_rows}
+    before = {k: f.launches for k, f in wrappers.items()}
+    legacy.run(log=False)
+    torch.cuda.synchronize()
+    assert {k: f.launches - before[k] for k, f in wrappers.items()} == {
+        **{k: 0 for k in wrappers}, **launches}
+    span.run(log=False)
+    assert torch.equal(legacy.X, span.X)
+    assert legacy.bytes_sent == span.bytes_sent > 0
+    assert legacy.sim_time_s == span.sim_time_s > 0
+    drop = lambda hs: [{k: v for k, v in h.items() if k != "wall_s"} for h in hs]  # noqa: E731
+    assert drop(legacy.history) == drop(span.history)
+    assert [h["round"] for h in legacy.history] == [0, 3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", [None, 4])
+def test_int4_codec_on_gpu_equals_the_cpu(seed):
+    """The packed int4 codec (plain torch ops) on the card: codes, scales
+    and decoded values bitwise its CPU result, with stochastic rounding
+    from the same key."""
+    from repro_torch.core import compression as tcomp
+
+    dev = _card()
+    x = torch.randn((64, 4098), generator=torch.Generator().manual_seed(3)) * 2.5
+    x[5] = 0.0
+    key = None if seed is None else prng.key(seed)
+    gp, gs = tcomp.quantize_int4(x.to(dev), key)
+    cp, cs = tcomp.quantize_int4(x, key)
+    assert gp.device.type == "cuda" and gp.dtype == torch.uint8 and gp.shape == (64, 2049)
+    assert torch.equal(gp.cpu(), cp) and torch.equal(gs.cpu(), cs)
+    assert torch.equal(tcomp.dequantize_int4(gp, gs).cpu(), tcomp.dequantize_int4(cp, cs))

@@ -1,12 +1,19 @@
 """Port parity: overlay graphs, neighbor tables and Metropolis-Hastings
-weights are bitwise the JAX package's; the link-time formula agrees."""
+weights are bitwise the JAX package's, and so are the graph's queries,
+run-time edits, files and spectral gap; the link-time formula, the links
+and the experiment time agree."""
+import dataclasses
+import json
+
 import jax  # noqa: F401  (both frameworks in one process, JAX on the CPU)
 import numpy as np
 import pytest
 import torch
 
+from repro.core import mixing as jmix
 from repro.core import network as jnet
 from repro.core import topology as jtop
+from repro_torch.core import mixing as tmix
 from repro_torch.core import network as tnet
 from repro_torch.core import topology as ttop
 
@@ -148,3 +155,87 @@ def test_staged_rounds_are_fresh_views_with_the_rounds_merge_tables():
     bad = ttop.SparseTopology(stack.nbr + 12, stack.w, stack.w_self)
     with pytest.raises(ValueError, match="out of range"):
         ttop.stage_rounds(bad, "cpu")
+
+
+@pytest.mark.parametrize("kind", ["ring", "regular", "random-regular", "fully", "star"])
+def test_graph_queries_and_weights_bitwise(kind):
+    a, b = _graphs(jtop)[kind], _graphs(ttop)[kind]
+    for i in range(a.n):
+        np.testing.assert_array_equal(a.neighbors(i), b.neighbors(i))
+    assert a.is_connected() is b.is_connected() is True
+    np.testing.assert_array_equal(a.uniform_weights(), b.uniform_weights())
+    assert abs(a.spectral_gap() - b.spectral_gap()) <= 1e-12
+
+
+def test_graph_is_connected_on_a_split_graph():
+    for mod in (jtop, ttop):
+        g = mod.Graph.ring(8)
+        g.remove_edge(0, 1)
+        assert g.is_connected()
+        g.remove_edge(4, 5)
+        assert not g.is_connected()
+
+
+def test_graph_mutation_bitwise():
+    """The graph changed at run time: the same edits give the same
+    adjacency, weights and tables in both packages."""
+    a, b = jtop.Graph.ring(10), ttop.Graph.ring(10)
+    for g in (a, b):
+        g.add_edge(0, 5)
+        g.add_edge(3, 3)  # a self loop is no edge
+        g.add_edge(2, 7)
+        g.remove_edge(0, 1)
+        g.remove_edge(4, 8)  # absent: a no-op
+    np.testing.assert_array_equal(a.adj, b.adj)
+    assert not b.adj[3, 3] and b.adj[5, 0] and not b.adj[1, 0]
+    np.testing.assert_array_equal(a.metropolis_hastings(), b.metropolis_hastings())
+    for x, y in zip(a.neighbor_table(), b.neighbor_table()):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("kind", ["ring", "random-regular", "star"])
+def test_graph_files_byte_for_byte(kind, tmp_path):
+    a, b = _graphs(jtop)[kind], _graphs(ttop)[kind]
+    pa, pb = tmp_path / "a.edges", tmp_path / "b.edges"
+    a.to_edge_list(str(pa))
+    b.to_edge_list(str(pb))
+    assert pa.read_bytes() == pb.read_bytes()
+    np.testing.assert_array_equal(ttop.Graph.from_edge_list(str(pb), b.n).adj, b.adj)
+    # adjacency-list JSON, as the reference's test writes it
+    d = {str(i): [int(j) for j in a.neighbors(i)] for i in range(a.n)}
+    pj = tmp_path / "g.json"
+    pj.write_text(json.dumps(d))
+    ga, gb = jtop.Graph.from_adjacency_json(str(pj)), ttop.Graph.from_adjacency_json(str(pj))
+    np.testing.assert_array_equal(ga.adj, gb.adj)
+    np.testing.assert_array_equal(gb.adj, b.adj)
+
+
+def test_spectral_gap_ordering():
+    gaps = [ttop.Graph.ring(32).spectral_gap(), ttop.Graph.regular_circulant(32, 5).spectral_gap(),
+            ttop.Graph.fully_connected(32).spectral_gap()]
+    assert gaps[0] < gaps[1] < gaps[2] + 1e-12
+
+
+@pytest.mark.parametrize("net", ["paper_testbed", "wan_deployment"])
+def test_links_and_experiment_time_match(net):
+    n = 12
+    a, b = getattr(jnet, net)(n), getattr(tnet, net)(n)
+    for i in range(n):
+        for j in range(n):
+            assert a.mapping.same_machine(i, j) == b.mapping.same_machine(i, j)
+            assert dataclasses.astuple(a.link(i, j)) == dataclasses.astuple(b.link(i, j))
+    assert b.link(5, 5) is b.local and b.link(0, 1) is b.remote
+    ct = jnet.straggler_compute_times(n, 0.5, 4.0, 0.25, seed=3)
+    ga, gb = jtop.Graph.regular_circulant(n, 4), ttop.Graph.regular_circulant(n, 4)
+    for rounds in (1, 7):
+        ta = a.experiment_time(ga, 2e5, ct, rounds)
+        assert ta == b.experiment_time(gb, 2e5, ct, rounds) > 0
+    assert b.experiment_time(gb, 2e5, 0.01, 3) == 3 * b.round_time(gb, 2e5, 0.01)
+
+
+@pytest.mark.parametrize("kind", ["ring", "regular", "fully"])
+@pytest.mark.parametrize("n_params,bpp", [(1000, 4), (62006, 1)])
+def test_mixing_bytes_per_node_matches(kind, n_params, bpp):
+    a, b = _graphs(jtop)[kind], _graphs(ttop)[kind]
+    want = jmix.mixing_bytes_per_node(a, n_params, bpp)
+    assert tmix.mixing_bytes_per_node(b, n_params, bpp) == want > 0
