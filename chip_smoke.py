@@ -30,7 +30,8 @@ Phases (any failure raises and the exit code is non-zero):
    profiled round and the share step timed alone;
 6. secure kernels: the keyed and staged secure-mask kernels and the
    threshold mask against their twins at the secure path's shapes and
-   ragged ones;
+   ragged ones; the staged flat form (B=1, K=5) bitwise at M=579,594 and
+   at an odd M, L2 hot and evicted;
 7. entry points: ``topk_mask_approx``, ``secure_mask_apply_nodes``,
    ``secure_mask_apply``, ``abs_histogram`` and ``gossip_mix``, each
    kernel's launches read around that run (and around each flat form);
@@ -65,7 +66,9 @@ Phases (any failure raises and the exit code is non-zero):
    0.9, no kernel), with the clocks, events and staleness printed;
 8g. scheduler kernels: the cohort merge over rows [cids | nbr] of a
    100,000-row population and the int8 cold-row codec at a cohort's
-   shapes;
+   shapes: the dequantize bitwise at every [million] leaf width (256, 16,
+   32, 2) for 8192 and 40,960 rows, L2 hot and evicted, beside
+   ``torch.mul(codes, scale)``;
 8h. population and million: ``benchmarks/bench_population.py``'s stages
    on the port, N=100,000 (flat selection, fp32 cold rows) and
    N=1,000,000 (segment-minimum selection, int8 cold rows, the spread
@@ -220,10 +223,13 @@ YARDSTICK_KEYS = ("searchsorted_", "code_pass_")  # check()'s further yardsticks
 PASS_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "device_ms",
              "device_recorded", "device_launched", "searchsorted_ms", "searchsorted_device_ms",
              "library_ms", "bound_operand_reads_ms")
+LEAF_KEYS = ("device_evicted_ms", "device_evicted_recorded", "device_evicted_by_read_ms",
+             "library_device_ms")
 # further checks of a kernel kept under its JSON entry: the fine histogram
 # pass, the quantize noise form, and the callers of the sampled strategies
 FORMS = ("fine_pass", "noise_form", "dynamic_table", "randk_rows", "strided_rows", "prng_noise",
-         "full_width", "cohort_rows", "cold_rows", "block_rows", "trainer_rows", "hybrid_prefill")
+         "full_width", "cohort_rows", "cold_rows", "block_rows", "trainer_rows", "hybrid_prefill",
+         "odd_width")
 PROFILER_BOOKKEEPING = ("Activity Buffer Request", "Buffer Flush")  # the profiler's own
 PAD_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: device_times' padding
 NO_LIBRARY = ("none: no PyTorch call draws Threefry counter bits or maps them to signed "
@@ -393,7 +399,10 @@ def check(label, kernel, twin, library, bound, tol=None, library_covers=None, pl
     way.  ``l2_resident``: the operands fit in the 50 MB L2, where
     back-to-back calls find them (``device_ms`` is then an L2 reading);
     ``device_evicted_ms`` is the device time with the L2 cleared before
-    each launch by a write over a 256 MiB scratch buffer (not counted)."""
+    each launch by a write over a 256 MiB scratch buffer (not counted; the
+    write's dirty lines then flush back to memory while the kernel runs),
+    ``device_evicted_by_read_ms`` with it cleared by a read of that buffer
+    (clean lines: the kernel's own traffic alone)."""
     import torch
 
     before = read_launches()
@@ -433,9 +442,11 @@ def check(label, kernel, twin, library, bound, tol=None, library_covers=None, pl
     if l2_resident:
         scratch = torch.empty(L2_EVICT_BYTES, dtype=torch.uint8, device="cuda")
         cold = device_times(kernel, wrappers, evict=lambda: scratch.fill_(1))
+        clean = device_times(kernel, wrappers, evict=lambda: scratch.sum())
         rec.update({"device_l2": "hot: back-to-back calls, operands L2-resident",
                     "device_evicted_ms": cold["ms"],
-                    "device_evicted_recorded": cold["recorded"]})
+                    "device_evicted_recorded": cold["recorded"],
+                    "device_evicted_by_read_ms": clean["ms"]})
         del scratch
     for key, fn in (("library", library), *(yardsticks or {}).items()):
         if fn is None:
@@ -883,8 +894,15 @@ def phase_secure_kernels(int_rate):
     out["secure_mask_apply"] = check(
         f"secure_mask_apply K={d} M={p}", lambda: sm.secure_mask_apply(x1, b1, s1),
         lambda: sm.secure_mask_apply_rows_ref(x1[None], None, b1[None], s1[None])[0],
-        None, staged_bound(p, s1[None]), tol=1e-6, l2_resident=True,
+        None, staged_bound(p, s1[None]), l2_resident=True,
         library_covers="none: no PyTorch call maps uint32 bits to signed masks and sums them")
+    # the same message at an odd M: single-word accesses
+    xo1, bo1 = x1[:p - 1].clone(), b1[:, :p - 1].contiguous()
+    out["secure_mask_apply"]["odd_width"] = check(
+        f"secure_mask_apply K={d} M={p - 1} (odd)", lambda: sm.secure_mask_apply(xo1, bo1, s1),
+        lambda: sm.secure_mask_apply_rows_ref(xo1[None], None, bo1[None], s1[None])[0],
+        None, staged_bound(p - 1, s1[None]), l2_resident=True)
+    del xo1, bo1
     br = random_words((37, 6, 1003), gen, torch.int32)
     check("secure_mask_apply_rows B=37 K=6 M=1003",
           lambda: sm.secure_mask_apply_rows(xr, rr, br, sr),
@@ -2722,6 +2740,7 @@ def phase_zoo():
 
 POP_N, POP_C, MILLION_N = 100_000, 8192, 1_000_000
 POP_SHAPE, POP_HIDDEN, POP_SPREAD = (4, 4, 1), 16, 15.0  # benchmarks/bench_population.py
+MILLION_LEAF_WIDTHS = (256, 16, 32, 2)  # per node: the MLP's w1, b1, w2 and b2
 
 
 # [dryrun]: the dry run at published width in this process (no device byte
@@ -3114,9 +3133,11 @@ def phase_cohort_oracles():
 
 def phase_scheduler_kernels():
     """The kernels at the new callers' shapes: the cohort merge (C=8192
-    rows [cids | nbr] of the N=100,000 population, K=5, P=306), and the
-    int8 cold-row codec at a cohort's largest leaf (8192 x 256) and at the
-    merge's decode of C·(1+D) rows."""
+    rows [cids | nbr] of the N=100,000 population, K=5, P=306), the int8
+    cold-row quantize at a cohort's largest leaf (8192 x 256), and the
+    dequantize at every leaf width of the [million] MLP (256, 16, 32, 2)
+    for a cohort's C rows and for the merge's decode of C·(1+D) rows, L2
+    hot and evicted, with ``torch.mul(codes, scale)`` beside it."""
     import torch
     from repro_torch.core.topology import SparseTopology
     from repro_torch.kernels import gossip_mix as gm
@@ -3138,11 +3159,22 @@ def phase_scheduler_kernels():
     out["cold_rows"] = check(f"quantize cold rows {POP_C} x 256 (a cohort's w1 leaf)",
                              lambda: q.quantize(leaf), lambda: q.quantize_ref(leaf), None,
                              codec_bound(POP_C, 256, False))
-    codes, scale = q.quantize(X[:POP_C * k, :256].contiguous())
-    out["cold_decode"] = check(
-        f"dequantize cold rows {POP_C * k} x 256 (the merge's decode)",
-        lambda: q.dequantize(codes, scale), lambda: q.dequantize_ref(codes, scale), None,
-        codec_bound(POP_C * k, 256, False))
+    # the decode at [million]'s leaf widths (w1 256, b1 16, w2 32, b2 2),
+    # for a cohort's hot rows (C) and the merge's C·(1+D) rows, bitwise
+    out["leaf_rows"] = {}
+    for r in (POP_C, POP_C * k):
+        for c in MILLION_LEAF_WIDTHS:
+            codes, scale = q.quantize(X[:r, :c].contiguous())
+            rec = check(f"dequantize cold rows {r} x {c}" + (" (the merge's decode)" if r > POP_C
+                                                              else " (a cohort's hot rows)"),
+                        lambda: q.dequantize(codes, scale), lambda: q.dequantize_ref(codes, scale),
+                        lambda: torch.mul(codes, scale), codec_bound(r, c, False),
+                        library_covers="torch.mul(codes, scale): the same function",
+                        l2_resident=True)
+            out["leaf_rows"][f"{r}x{c}"] = {key: rec[key] for key in PASS_KEYS + LEAF_KEYS
+                                           if key in rec}
+            if (r, c) == (POP_C * k, 256):
+                out["cold_decode"] = rec
     del X, codes, scale
     torch.cuda.empty_cache()
     return out
@@ -3964,6 +3996,7 @@ def main():
     checks["gossip_mix_rows"]["trainer_rows"] = train_merge
     checks["quantize"]["cold_rows"] = sched_kernels["cold_rows"]
     checks["dequantize"]["cold_rows"] = sched_kernels["cold_decode"]
+    checks["dequantize"]["leaf_rows"] = sched_kernels["leaf_rows"]
     for kernel, rec in proc_kernels.items():
         checks[kernel]["block_rows"] = rec
     launches["swa_attention_gqa"] = serve_launches["swa_attention_gqa"]
@@ -4005,8 +4038,9 @@ def main():
             **{k: v for k, v in c.items() if k.startswith("bound_tf32")},
             **{k: v for k, v in c.items() if k.startswith(YARDSTICK_KEYS)},
             **{k: v for k, v in c.items() if k.startswith("device_evicted") or k == "device_l2"},
-            **{form: {k: c[form][k] for k in PASS_KEYS if k in c[form]}
+            **{form: {k: c[form][k] for k in PASS_KEYS + LEAF_KEYS if k in c[form]}
                for form in FORMS if form in c},
+            **({"leaf_rows": c["leaf_rows"]} if "leaf_rows" in c else {}),
             # the launches of every path's run that launched this kernel
             "launches_by_path": {path: counts[kernel] for path, counts in by_path.items()
                                  if counts.get(kernel)},

@@ -2,8 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  ``nvcc`` compiles it for
 ``sm_90a`` into ``build/repro_torch/lib<name>-<hash>.so`` at the root of
-the checkout (the hash covers the source and the flags, so an edited
-source builds anew), and ``ctypes`` loads it.  Nothing here runs at
+the checkout (the hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source builds anew), and ``ctypes``
+loads it.  The package's ``csrc`` is on the include path, so a copy of a
+source built from elsewhere (a sweep's variant) finds the headers too.  Nothing here runs at
 import time.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+INCLUDE = CSRC  # the shared headers, wherever CSRC is pointed
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -39,14 +42,16 @@ def build(name: str) -> Path:
     exists; returns the library's path.  The compiler's output (register
     and shared-memory use per kernel) goes beside it as ``.log``."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(h.read_bytes() for h in sorted(INCLUDE.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE), "-o", str(tmp), str(src)],
         capture_output=True, text=True, timeout=600,
     )
     if proc.returncode != 0:

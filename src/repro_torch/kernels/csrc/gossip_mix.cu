@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -123,17 +125,6 @@ gossip_mix_rows_kernel(const T* __restrict__ X, int64_t ldx,
       out[n * ldo + c] = from_f32<T>(acc);
     }
   }
-}
-
-int sm_count() {
-  static int sms = 0;  // the SM count of the first device asked; H100s all have 132
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
-  }
-  return sms;
 }
 
 template <typename T, int V, int ITEMS>

@@ -30,8 +30,19 @@
 // (codes) where every row's x, codes and noise reach those boundaries
 // after the same peel of up to 3 columns (contiguous rows always do; the
 // host checks the base addresses and row strides); otherwise the same
-// arithmetic runs on single columns.  Dequantize is one elementwise pass
-// over a (row, column-chunk) grid.
+// arithmetic runs on single columns.
+//
+// Dequantize, bound by bytes too (one multiply against 5 bytes an
+// element): contiguous rows, as every caller hands them, are one flat
+// elementwise pass over the R * C elements, whatever C is, so rows as
+// narrow as the cohort path's leaves (C = 2, 16, 32) fill the threads they
+// launch.  A warp step takes 512 elements, each lane four chunks of 4
+// (one 4-byte code load and one 16-byte store each, every access
+// coalesced over the warp), on a grid of a few waves of resident blocks
+// that strides over the rest; each chunk finds its row by one 32-bit
+// division and steps to the next row's scale where a row ends.  Strided
+// rows, and contiguous ones past 2^32 elements (17 GB of output, more
+// than any path holds), keep a (row, column-chunk) grid of single columns.
 //
 // Bitwise parity with the reference as XLA compiles it: under jit XLA
 // rewrites amax / 127 into amax * fl(1/127), the fp32 reciprocal, so the
@@ -49,6 +60,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -58,7 +73,9 @@ constexpr int kQVecs = 8;        // 4-column groups a thread holds in registers
 constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr int kMaxColumns = 1 << 30;  // per row: in-row offsets are 32-bit
 constexpr int kDqThreads = 256;
-constexpr int kDqItems = 8;  // elements per thread per dequantize block
+constexpr int kDqItems = 8;   // elements per thread per block of the strided dequantize
+constexpr int kDqWarpStep = 512;  // flat dequantize: elements per warp step (16 a lane)
+constexpr int kDqWaves = 4;   // flat dequantize: grids of resident blocks, at most
 constexpr float kInv127 = 1.0f / 127.0f;  // rounded once, to fp32
 
 // max that keeps a NaN of either operand (jnp.max, torch.amax).
@@ -200,6 +217,8 @@ cudaError_t launch_quantize(const cudaLaunchConfig_t& cfg, const void* x, int64_
                             static_cast<int8_t*>(codes), ldc, static_cast<float*>(scale));
 }
 
+// Strided rows (a row stride other than C in codes or out), and R * C of
+// 2^32 elements or more: one block per (row, column chunk), single columns.
 __global__ void __launch_bounds__(kDqThreads)
 dequantize_rows_kernel(const int8_t* __restrict__ codes, int64_t ldc,
                        const float* __restrict__ scale, int64_t C,
@@ -215,6 +234,93 @@ dequantize_rows_kernel(const int8_t* __restrict__ codes, int64_t ldc,
     for (int i = 0; i < kDqItems; ++i) {
       const int64_t c = base + threadIdx.x + static_cast<int64_t>(i) * kDqThreads;
       if (c < C) orow[c] = __fmul_rn(static_cast<float>(cr[c]), s);
+    }
+  }
+}
+
+// Division of flat indices below 2^32 by the row width C (1 <= C < 2^32),
+// by an invariant-integer multiplier (the round-up method of Granlund and
+// Montgomery: q = (t + ((i - t) >> s1)) >> s2, t = umulhi(m, i), exact for
+// every 32-bit i).
+struct RowDiv {
+  int64_t C;
+  uint32_t m;
+  int s1, s2;
+};
+
+RowDiv row_div(int64_t C) {
+  int l = 0;
+  while ((int64_t{1} << l) < C) ++l;
+  const uint32_t m =
+      static_cast<uint32_t>(((uint64_t{1} << 32) * ((uint64_t{1} << l) - C)) / C + 1);
+  return RowDiv{C, m, l < 1 ? l : 1, l > 1 ? l - 1 : 0};
+}
+
+__device__ __forceinline__ int64_t row_of(int64_t i, const RowDiv& d) {
+  const uint32_t n = static_cast<uint32_t>(i), t = __umulhi(d.m, n);
+  return (t + ((n - t) >> d.s1)) >> d.s2;
+}
+
+// Contiguous rows (ldc == ldo == C) as one flat pass over n = R * C < 2^32
+// elements, whatever C is.  A warp step covers kDqWarpStep consecutive
+// elements: lane l takes the 4-element chunks at l * 4 + j * 128 (j < 4),
+// so each of its loads and stores is one coalesced access of the warp.
+// With kVec (codes 4-byte and out 16-byte aligned: the host checks) a
+// chunk is one 4-byte load of codes and one 16-byte store; without,
+// single elements.  A chunk finds the row r of its first element by one
+// division; for C >= 4 its elements lie in rows r and r + 1, split where
+// column C is reached, otherwise each finds its own (at most 4 rows), all
+// without a branch.  The tail (under kDqWarpStep elements) goes one
+// element to a thread.
+template <bool kVec>
+__global__ void __launch_bounds__(kDqThreads)
+dequantize_flat_kernel(const int8_t* __restrict__ codes, const float* __restrict__ scale,
+                       RowDiv d, int64_t n, float* __restrict__ out) {
+  constexpr int kChunks = kDqWarpStep / 128;
+  const int64_t C = d.C;
+  const int64_t steps = n / kDqWarpStep;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kDqThreads + threadIdx.x;
+  const int64_t threads = static_cast<int64_t>(gridDim.x) * kDqThreads;
+  for (int64_t i = steps * kDqWarpStep + t; i < n; i += threads)
+    out[i] = __fmul_rn(static_cast<float>(codes[i]), __ldg(scale + row_of(i, d)));
+  const int lane = threadIdx.x % 32;
+  for (int64_t w = t / 32; w < steps; w += threads / 32) {
+    const int64_t base = w * kDqWarpStep + lane * 4;
+    int8_t q[kChunks][4];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int64_t i = base + j * 128;
+      if constexpr (kVec) {
+        const uint32_t word = *reinterpret_cast<const uint32_t*>(codes + i);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) q[j][k] = static_cast<int8_t>(word >> (8 * k));
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) q[j][k] = codes[i + k];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int64_t i = base + j * 128;
+      const int64_t r = row_of(i, d), c = i - r * C;
+      float v[4];
+      if (C >= 4) {  // rows r and r + 1 (r + 1 only if the chunk reaches it)
+        const float s0 = __ldg(scale + r), s1 = __ldg(scale + r + (c + 3 >= C));
+#pragma unroll
+        for (int k = 0; k < 4; ++k) v[k] = __fmul_rn(static_cast<float>(q[j][k]), c + k < C ? s0 : s1);
+      } else {  // C = 1, 2, 3: element k's row is r + (c + k) / C
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int64_t rk = r + (c + k >= C) + (c + k >= 2 * C) + (c + k >= 3 * C);
+          v[k] = __fmul_rn(static_cast<float>(q[j][k]), __ldg(scale + rk));
+        }
+      }
+      if constexpr (kVec) {
+        *reinterpret_cast<float4*>(out + i) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) out[i + k] = v[k];
+      }
     }
   }
 }
@@ -274,11 +380,32 @@ int dequantize_rows_f32(const void* codes, long long ldc, const void* scale,
                         int R, long long C, void* out, long long ldo,
                         void* stream) {
   if (R <= 0 || C <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t n = static_cast<int64_t>(R) * C;
+  if (ldc == C && ldo == C && n < (int64_t{1} << 32)) {
+    // one flat pass; 4-byte code loads and 16-byte stores where codes and
+    // out are aligned to them (out, the wrapper's own, always is)
+    const bool vec = reinterpret_cast<uintptr_t>(codes) % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(out) % 16 == 0;
+    const int64_t steps = n / kDqWarpStep;
+    int64_t blocks = std::max<int64_t>(1, (steps + kDqThreads / 32 - 1) / (kDqThreads / 32));
+    const int64_t cap = static_cast<int64_t>(kDqWaves) * (2048 / kDqThreads) * sm_count();
+    if (blocks > cap) blocks = cap;  // the warp-step loop strides over the rest
+    const dim3 grid(static_cast<unsigned>(blocks));
+    const auto* c = static_cast<const int8_t*>(codes);
+    const auto* s = static_cast<const float*>(scale);
+    auto* o = static_cast<float*>(out);
+    if (vec)
+      dequantize_flat_kernel<true><<<grid, kDqThreads, 0, st>>>(c, s, row_div(C), n, o);
+    else
+      dequantize_flat_kernel<false><<<grid, kDqThreads, 0, st>>>(c, s, row_div(C), n, o);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int64_t tile = static_cast<int64_t>(kDqThreads) * kDqItems;
   int64_t tiles = (C + tile - 1) / tile;
   if (tiles > 65535) tiles = 65535;  // the column loop strides over the rest
   dim3 grid(static_cast<unsigned>(R), static_cast<unsigned>(tiles));
-  dequantize_rows_kernel<<<grid, kDqThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  dequantize_rows_kernel<<<grid, kDqThreads, 0, st>>>(
       static_cast<const int8_t*>(codes), ldc, static_cast<const float*>(scale), C,
       static_cast<float*>(out), ldo);
   return static_cast<int>(cudaGetLastError());

@@ -63,6 +63,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -265,17 +267,6 @@ threshold_mask_kernel(const float* __restrict__ x, int64_t M, const float* __res
     vals[i] = keep ? v : 0.f;
     mask[i] = keep ? 1 : 0;
   }
-}
-
-int sm_count() {
-  static int sms = 0;  // the SM count of the first device asked; H100s all have 132
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      sms = 132;
-  }
-  return sms;
 }
 
 // Blocks per row: kWaves grids of resident blocks (2048 threads per SM)

@@ -59,28 +59,37 @@ def make_production_mesh(*, multi_pod: bool = False) -> LogicalMesh:
     return LogicalMesh(("data", "model"), (16, 1))
 
 
-def _visible_devices() -> Tuple[str, int]:
-    if torch.cuda.is_available():
-        return "cuda", torch.cuda.device_count()
-    return "cpu", 1
+def _visible_devices(device=None) -> Tuple[str, int]:
+    """(device type, devices visible) for ``device`` ('cpu' or 'cuda';
+    None means the card, raising where there is none, as the engine's
+    ``resolve_device``)."""
+    from repro_torch.core.engine import resolve_device
+
+    kind = resolve_device(device).type
+    if kind == "cpu":
+        return "cpu", 1
+    if kind != "cuda":
+        raise ValueError(f"unsupported device {device!r} (cpu|cuda)")
+    return "cuda", torch.cuda.device_count()
 
 
-def make_node_mesh(n_devices: int = 0, axis: str = "nodes"):
+def make_node_mesh(n_devices: int = 0, axis: str = "nodes", device=None):
     """1-D ``DeviceMesh`` over the first ``n_devices`` visible cards (all,
-    if 0; the CPU counts as one device where there is no card) with a
-    single node axis.  Where no process group is up, a one-process group
-    is started from an in-memory store (nccl on the card, gloo on the
-    CPU); a mesh over n > 1 cards takes a group of n processes, one per
-    card."""
+    if 0) with a single node axis.  ``device=None`` means the card and
+    raises where there is none; ``device='cpu'`` builds the mesh over the
+    CPU, which counts as one device.  Where no process group is up, a
+    one-process group is started from an in-memory store (nccl on the
+    card, gloo on the CPU); a mesh over n > 1 cards takes a group of n
+    processes, one per card."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
-    kind, visible = _visible_devices()
+    kind, visible = _visible_devices(device)
     n = n_devices or visible
     if visible < n:
         raise ValueError(
             f"mesh wants {n} devices but only {visible} are visible "
-            "(without a card the CPU counts as one)")
+            "(the CPU counts as one)")
     if not dist.is_initialized():
         dist.init_process_group("nccl" if kind == "cuda" else "gloo", store=dist.HashStore(),
                                 rank=0, world_size=1)

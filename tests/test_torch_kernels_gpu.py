@@ -130,6 +130,82 @@ def test_codec_bitwise_twin_on_gpu(R, C, noisy):
     assert torch.isnan(out[R - 1]).all() and torch.isfinite(out[:R - 1]).all()
 
 
+def _codes(g, shape, dev):
+    return torch.randint(-127, 128, shape, generator=g, device=dev, dtype=torch.int32).to(torch.int8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,C", [(40_960, 1), (40_960, 2), (40_960, 16), (40_960, 32),
+                                 (40_960, 256), (8192, 2), (64, 57_959), (16, 579_594), (3, 5)])
+def test_flat_dequantize_bitwise_twin_on_gpu(R, C):
+    """Contiguous rows of every width the paths use take the flat pass:
+    bitwise the twin (a NaN scale row included), one launch."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(R + C)
+    codes = _codes(g, (R, C), dev)
+    scale = torch.rand((R, 1), generator=g, device=dev) * 10
+    scale[R // 2] = float("nan")
+    before = tq.dequantize.launches
+    out = tq.dequantize(codes, scale)
+    torch.cuda.synchronize()
+    assert tq.dequantize.launches == before + 1
+    torch.testing.assert_close(out, tq.dequantize_ref(codes, scale), rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.isnan(out[R // 2]).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [1, 2, 4, 12])
+def test_dequantize_unaligned_base_bitwise_twin_on_gpu(offset):
+    """Contiguous codes whose base is off its 16-byte boundary: 4-byte code
+    loads where it is 4-byte aligned (offsets 4 and 12), single elements
+    where it is not (1, 2)."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(offset)
+    R, C = 1001, 57
+    buf = _codes(g, (R * C + 16,), dev)
+    codes = buf[offset:offset + R * C].view(R, C)
+    assert codes.is_contiguous() and codes.data_ptr() % 16 == offset
+    scale = torch.rand((R, 1), generator=g, device=dev)
+    out = tq.dequantize(codes, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tq.dequantize_ref(codes, scale))
+
+
+@pytest.mark.gpu
+def test_dequantize_strided_rows_bitwise_twin_on_gpu():
+    """A column-slice view (row stride C + 3, base off by one) keeps the
+    per-row path."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(9)
+    R, C = 333, 1000
+    codes = _codes(g, (R, C + 3), dev)[:, 1:C + 1]
+    assert codes.stride(0) == C + 3
+    scale = torch.rand((R, 1), generator=g, device=dev)
+    out = tq.dequantize(codes, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tq.dequantize_ref(codes, scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,C", [(32_768, 65_537), (65_537, 65_537)])
+def test_dequantize_past_2_31_elements_bitwise_twin_on_gpu(R, C):
+    """R * C past 2^31 (2,147,516,416: the flat pass's 32-bit row division
+    at indices with the top bit set) and past 2^32 (4,295,098,369: the
+    per-row kernel; 4.3 GB of codes, 17.2 GB out), compared with the twin
+    in blocks of rows."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(31)
+    codes = _codes(g, (R, C), dev)
+    scale = torch.rand((R, 1), generator=g, device=dev)
+    out = tq.dequantize(codes, scale)
+    torch.cuda.synchronize()
+    for i in range(0, R, 4096):
+        assert torch.equal(out[i:i + 4096], tq.dequantize_ref(codes[i:i + 4096], scale[i:i + 4096]))
+    del codes, out
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("N,P,E", [(16, 579_594, 128), (5, 1001, 7), (3, 40, 1)])
 def test_histogram_bitwise_twin_on_gpu(N, P, E):
@@ -394,6 +470,10 @@ def _words(g, shape, dev):
     return torch.randint(0, 1 << 32, shape + (2,), generator=g, device=dev, dtype=torch.int64)
 
 
+def _bits(g, shape, dev):
+    return torch.randint(-(1 << 31), 1 << 31, shape, generator=g, device=dev, dtype=torch.int32)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,K,M", [(7, 1, 1), (5, 1, 1000), (3, 1, 70_001), (2, 1, 4_097)])
 def test_keyed_mask_bitwise_on_gpu(B, K, M):
@@ -449,6 +529,65 @@ def test_staged_kernel_matches_twin_on_gpu(B, K, M):
                                rtol=0, atol=1e-6)
     flat = sm.secure_mask_apply(x[0], bits[0], signs[0], 0.9)
     torch.testing.assert_close(flat, got[0], rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 3, 1_001, 579_594])
+def test_staged_flat_form_bitwise_on_gpu(M):
+    """The flat form (B = 1, K = 5, a zero sign among them) at widths its
+    peel and tail alone cover and at the main path's M (8-byte accesses):
+    bitwise the twin and row 0 of the stacked form, one launch each."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(M)
+    x = torch.randn((2, M), generator=g, device=dev)
+    bits = _bits(g, (2, 5, M), dev)
+    signs = torch.tensor([[1.0, -1.0, 0.0, 1.0, -1.0], [-1.0, 1.0, 1.0, 0.0, 1.0]], device=dev)
+    before = sm.secure_mask_apply_rows.launches
+    flat = sm.secure_mask_apply(x[0], bits[0], signs[0], 0.9)
+    stacked = sm.secure_mask_apply_nodes(x, bits, signs, 0.9)
+    torch.cuda.synchronize()
+    assert sm.secure_mask_apply_rows.launches == before + 2
+    assert torch.equal(flat, sm.secure_mask_apply_rows_ref(x[:1], None, bits[:1], signs[:1], 0.9)[0])
+    assert torch.equal(stacked, sm.secure_mask_apply_rows_ref(x, None, bits, signs, 0.9))
+    assert torch.equal(flat, stacked[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_off,bits_off,width", [(0, 0, 4), (2, 0, 2), (1, 1, 4), (1, 0, 1)])
+def test_staged_kernel_access_widths_bitwise_on_gpu(x_off, bits_off, width):
+    """Rows of x, bits and out at word offsets that give 16-, 8- and
+    4-byte accesses after a common peel: bitwise the twin."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(width + x_off)
+    B, K, M = 3, 4, 4096
+    x = torch.randn((B * M + 4,), generator=g, device=dev)[x_off:x_off + B * M].view(B, M)
+    bits = _bits(g, (B * K * M + 4,), dev)[bits_off:bits_off + B * K * M].view(B, K, M)
+    out = torch.empty((B * M + 4,), device=dev)[x_off:x_off + B * M].view(B, M)
+    signs = torch.randint(-1, 2, (B, K), generator=g, device=dev).float()
+    got = sm.secure_mask_apply_rows(x, None, bits, signs, 0.9, out=out)
+    torch.cuda.synchronize()
+    assert got is out and torch.equal(out, sm.secure_mask_apply_rows_ref(x, None, bits, signs, 0.9))
+
+
+@pytest.mark.gpu
+def test_staged_all_zero_signs_in_place_on_gpu():
+    """In place (out = x, rows None): messages whose signs are all zero are
+    left bit for bit as they were, the others take their masks."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, K, M = 4, 5, 1_001
+    x = torch.randn((B, M), generator=g, device=dev)
+    keep = x.clone()
+    bits = _bits(g, (B, K, M), dev)
+    signs = torch.zeros((B, K), device=dev)
+    assert sm.secure_mask_apply_rows(x, None, bits, signs, 1.0, out=x) is x
+    torch.cuda.synchronize()
+    assert torch.equal(x, keep)
+    signs[1, 2], signs[3, 0] = 1.0, -1.0
+    want = sm.secure_mask_apply_rows_ref(x, None, bits, signs, 1.0)
+    sm.secure_mask_apply_rows(x, None, bits, signs, 1.0, out=x)
+    torch.cuda.synchronize()
+    assert torch.equal(x, want) and torch.equal(x[0::2], keep[0::2])
 
 
 @pytest.mark.gpu

@@ -77,6 +77,26 @@ def test_dequantize_bitwise(R, C):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("C", [2, 16, 32, 256])
+def test_dequantize_leaf_widths_bitwise_jax(C):
+    """The cohort path's int8 cold-row leaves (widths 2, 16, 32 and 256), a
+    few hundred rows each with a row at the 1e-12 scale floor and a NaN
+    row: the twin, which a CPU tensor takes, bitwise the Pallas kernel in
+    interpret mode and the jitted reference."""
+    R = 256 + C
+    rng = np.random.default_rng(1000 + C)
+    codes = rng.integers(-127, 128, size=(R, C)).astype(np.int8)
+    scale = rng.uniform(1e-6, 10.0, size=(R, 1)).astype(np.float32)
+    scale[3], scale[R - 2] = np.float32(1e-12), np.nan
+    got = tq.dequantize(torch.tensor(codes), torch.tensor(scale))
+    np.testing.assert_array_equal(got.numpy(), tq.dequantize_ref(torch.tensor(codes),
+                                                                 torch.tensor(scale)).numpy())
+    jc, js = jnp.asarray(codes), jnp.asarray(scale)
+    for want in (jops.dequantize(jc, js), jax.jit(jref.dequantize_ref)(jc, js)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert np.isnan(got.numpy()[R - 2]).all() and np.isfinite(got.numpy()[:R - 2]).all()
+
+
 @pytest.mark.parametrize("shape", [(8, 513), (2, 3, 100), (7,)])
 def test_compression_int8_bitwise_jax(shape):
     x = _x(shape, sum(shape))
@@ -218,3 +238,90 @@ def test_kernel_cluster_size_at_the_paths_row():
     assert _cluster_size(c) == 8
     per_thread = c / (8 * _cu_const("kQThreads"))
     assert 28 < per_thread <= _cu_const("kQVecs") * 4
+
+
+# --- the flat dequantize (csrc/quantize.cu dequantize_flat_kernel), modelled
+# in plain Python: its row arithmetic and its cover of the R * C elements
+
+def _row_div(c):
+    """row_div of csrc/quantize.cu: the invariant-integer multiplier and
+    shifts for 32-bit indices (the round-up method)."""
+    ceil_log2 = 0
+    while (1 << ceil_log2) < c:
+        ceil_log2 += 1
+    m = ((1 << 32) * ((1 << ceil_log2) - c)) // c + 1
+    return m, min(ceil_log2, 1), max(ceil_log2 - 1, 0)
+
+
+def _row_of(i, c):
+    """row_of of csrc/quantize.cu: the row of a 32-bit index i by the
+    multiplier and two shifts."""
+    m, s1, s2 = _row_div(c)
+    t = (m * i) >> 32
+    return (t + ((i - t) >> s1)) >> s2
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 7, 16, 256, 57_959, 579_594, 2**31 - 1, 2**31 + 1,
+                                2**32 - 1])
+def test_flat_dequantize_row_division_is_exact(c):
+    """The multiplier fits 32 bits and divides every index below 2^32 (the
+    flat pass's whole range: larger R * C take the per-row kernel)
+    exactly, at row boundaries and with the top bit set."""
+    assert _row_div(c)[0] < 1 << 32
+    rng = np.random.default_rng(c % 1000)
+    idx = np.concatenate([rng.integers(0, 2**32, 6000), [0, c - 1, c, 2**31, 2**32 - 1],
+                          np.arange(1, 100) * c - 1, np.arange(1, 100) * c])
+    for i in idx.tolist():
+        if i < 1 << 32:
+            assert _row_of(i, c) == i // c
+
+
+def _flat_dequantize_rows(r, c, ca, oa, cap_blocks=3):
+    """Row each element's scale is read from, as dequantize_flat_kernel
+    finds them: the host's vec test for code and out addresses ca and oa;
+    warp steps of kDqWarpStep elements over a grid of cap_blocks blocks,
+    lane l taking the 4-element chunks at l * 4 + j * 128, each from one
+    row_of, then rows r and r + 1 split at column c for c >= 4, else
+    r + (col + k) // c by three compares; the tail one element to a
+    thread.  Also asserts every 4-byte code load and 16-byte store is
+    aligned."""
+    step, threads = _cu_const("kDqWarpStep"), _cu_const("kDqThreads")
+    n = r * c
+    vec = ca % 4 == 0 and oa % 16 == 0
+    steps = n // step
+    blocks = min(max(1, -(-steps // (threads // 32))), cap_blocks)
+    warps = blocks * threads // 32
+    rows = np.full(n, -1)
+    for i in range(steps * step, n):
+        assert rows[i] == -1
+        rows[i] = _row_of(i, c)
+    for warp in range(warps):
+        for w in range(warp, steps, warps):
+            for lane in range(32):
+                for j in range(step // 128):
+                    i = w * step + lane * 4 + j * 128
+                    if vec:
+                        assert (ca + i) % 4 == 0 and (oa + 4 * i) % 16 == 0
+                    row = _row_of(i, c)
+                    col = i - row * c
+                    for k in range(4):
+                        if c >= 4:
+                            rk = row if col + k < c else row + (col + 3 >= c)
+                        else:
+                            rk = row + (col + k >= c) + (col + k >= 2 * c) + (col + k >= 3 * c)
+                        assert rows[i + k] == -1
+                        rows[i + k] = rk
+    return rows, vec
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 15, 16, 17, 32, 256, 1001])
+@pytest.mark.parametrize("ca,oa,vec", [(0, 0, True), (4, 16, True), (12, 48, True),
+                                       (1, 0, False), (2, 16, False), (0, 4, False)])
+def test_flat_dequantize_covers_each_element_once_with_its_row(c, ca, oa, vec):
+    """Every element is written once, with its own row's scale, at widths
+    from 1 (every element a new row) to past a warp step, on the vector
+    path and on the single-element path, across a grid-stride."""
+    for r in (1, 3, 41, 900 // c + 1):
+        rows, v = _flat_dequantize_rows(r, c, ca, oa)
+        assert v == vec
+        np.testing.assert_array_equal(rows, np.arange(r * c) // c)

@@ -14,6 +14,7 @@ from jax.sharding import AbstractMesh
 from _torch_threads import two_torch_threads  # noqa: F401  (autouse fixture)
 from repro.launch import mesh as j_mesh
 from repro.launch.roofline import Roofline as JRoofline
+from repro_torch.core import engine as tengine
 from repro_torch.launch import mesh
 from repro_torch.launch.roofline import CollectiveCounter, Roofline, peak_flops_for
 
@@ -110,18 +111,32 @@ def test_production_mesh_has_the_references_node_axes(multi_pod):
 
 
 def test_node_mesh_on_the_cpu(monkeypatch):
-    """One device where there is no card: a 1-D mesh of one rank over a
+    """Asked for the CPU (``device='cpu'``): a 1-D mesh of one rank over a
     one-process gloo group it starts; asking for more devices raises as
     the reference does."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert not dist.is_initialized()
     try:
-        m = mesh.make_node_mesh()
+        m = mesh.make_node_mesh(device="cpu")
         assert m.mesh_dim_names == ("nodes",) and m.size() == 1 and m.device_type == "cpu"
         assert mesh.node_axes(m) == ("nodes",) and mesh.n_node_slots(m) == 1
         assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
         with pytest.raises(ValueError, match="only 1 are visible"):
-            mesh.make_node_mesh(2)
+            mesh.make_node_mesh(2, device="cpu")
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("n_devices", [0, 2])
+def test_node_mesh_without_a_card_raises(monkeypatch, n_devices):
+    """``device=None`` means the card: without one the mesh raises, names
+    ``device='cpu'`` as the engine's ``resolve_device`` does, and starts no
+    process group."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is available; pass device='cpu'"):
+        mesh.make_node_mesh(n_devices)
+    with pytest.raises(RuntimeError) as err:
+        tengine.resolve_device(None)
+    assert str(err.value) == "no CUDA device is available; pass device='cpu' to run on the CPU"
+    assert not dist.is_initialized()

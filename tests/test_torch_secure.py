@@ -10,6 +10,9 @@ it must equal once the masks cancel (the masks are of order 1 and cancel
 only up to fp32 rounding); bytes equal; the engine runs as
 ``_torch_engine_parity`` says.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -128,6 +131,103 @@ def test_cpu_tensor_takes_the_twin_and_leaves_the_counter():
         sm.secure_mask_apply_rows_keyed(torch.ones((2, 4), device="meta"), None,
                                         torch.ones((2, 1, 2), device="meta"),
                                         torch.ones((2, 1), device="meta"))
+
+
+@pytest.mark.parametrize("M", [1, 3, 1001])
+def test_flat_staged_form_matches_jax_at_odd_widths(M):
+    """The flat (M,) form at widths the staged kernel handles by its peel
+    and tail alone (1, 3) and at an odd M: within 1e-6 of the reference's
+    Pallas kernel in interpret mode, and bitwise row 0 of the stacked form."""
+    rng = np.random.default_rng(M + 5)
+    x = rng.normal(size=(2, M)).astype(np.float32)
+    bits = rng.integers(0, 2**32, size=(2, 5, M), dtype=np.uint64).astype(np.uint32)
+    signs = np.array([[1, 0, -1, 1, -1], [0, 0, 1, 0, 0]], np.float32)
+    flat = sm.secure_mask_apply(torch.tensor(x[0]), torch.tensor(bits[0].view(np.int32)),
+                                torch.tensor(signs[0]), 0.9)
+    want = jops.secure_mask_apply(jnp.asarray(x[0]), jnp.asarray(bits[0]),
+                                  jnp.asarray(signs[0]), 0.9)
+    np.testing.assert_allclose(flat.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+    stacked = sm.secure_mask_apply_nodes(torch.tensor(x), torch.tensor(bits.view(np.int32)),
+                                         torch.tensor(signs), 0.9)
+    np.testing.assert_array_equal(flat.numpy(), stacked[0].numpy())
+
+
+# --- the staged kernel's partition (csrc/secure_mask.cu secure_mask_bits_kernel),
+# modelled in plain Python: the kernel itself runs only on the card
+# (tests/test_torch_kernels_gpu.py)
+
+def _cu_const(name):
+    src = (Path(sm.__file__).parent / "csrc" / "secure_mask.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def _staged_chunks(B, M, sms=132):
+    """staged_grid of csrc/secure_mask.cu: column chunks per message."""
+    by_row = max(1, -(-(M // _cu_const("kStagePos")) // _cu_const("kStageThreads")))
+    want = _cu_const("kStageWaves") * (2048 // _cu_const("kStageThreads")) * sms
+    return min(max(min(by_row, -(-want // B)), 1), 65535)
+
+
+def _staged_cover(B, M, K, xa, ba, oa, ldx, ldo):
+    """Times each (message, position) is summed by the staged kernel's
+    grid and warp steps, and the access width W the host picks for word
+    addresses xa, ba, oa (x, bits, out) and row strides ldx, ldo: lane l
+    of a step takes the W-word accesses at l * W + a * 32 (a a multiple
+    of W under kStagePos), the peel and the tail one position to a
+    thread.  Asserts every access of x, of each slot's bit row and of out
+    is aligned."""
+    pos, threads = _cu_const("kStagePos"), _cu_const("kStageThreads")
+
+    def same_peel(w):
+        m = w - 1
+        return (w <= pos and (xa - ba) & m == 0 and (xa - oa) & m == 0 and ldx & m == 0
+                and M & m == 0 and ldo & m == 0)
+
+    W = 4 if same_peel(4) else 2 if same_peel(2) else 1
+    warps = _staged_chunks(B, M) * threads // 32
+    step = 32 * pos
+    seen = np.zeros((B, M), np.int64)
+    for b in range(B):
+        xr = xa + b * ldx
+        h = min(0 if W == 1 else (W - xr % W) % W, M)
+        steps = (M - h) // step
+        tail = h + steps * step
+        for e in range(h + (M - tail)):
+            seen[b, e if e < h else tail + (e - h)] += 1
+        for warp in range(warps):
+            for w in range(warp, steps, warps):
+                for lane in range(32):
+                    for a in range(0, pos, W):
+                        m = h + w * step + lane * W + a * 32
+                        assert (xr + m) % W == 0 and (oa + b * ldo + m) % W == 0
+                        assert all((ba + (b * K + k) * M + m) % W == 0 for k in range(K))
+                        seen[b, m:m + W] += 1
+    return seen, W
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 1001, 1002, 4096, 70_002])
+@pytest.mark.parametrize("B,addr,W_mod4", [(1, (0, 0, 0), {0: 4, 2: 2}), (3, (0, 0, 0), {0: 4, 2: 2}),
+                                           (1, (1, 1, 1), {0: 4, 2: 2}), (2, (2, 0, 2), {0: 2, 2: 2}),
+                                           (1, (1, 0, 0), {})])
+def test_staged_kernel_sums_each_position_once(M, B, addr, W_mod4):
+    """Every (message, position) is summed exactly once at widths from 1 to
+    past a block's steps, with 16-, 8- and 4-byte accesses (M = 2 mod 4
+    leaves the slot rows 8-byte aligned), peeled or not."""
+    seen, W = _staged_cover(B, M, 5, *addr, M, M)
+    np.testing.assert_array_equal(seen, np.ones((B, M), np.int64))
+    assert W == W_mod4.get(M % 4, 1)
+
+
+def test_staged_grid_is_sized_by_the_card():
+    """At B = 1 and the main path's M the grid takes every block a row has
+    work for (one step a thread, all resident at once); at B = 1024 it
+    holds kStageWaves waves of resident blocks and strides over the rest."""
+    M, pos, threads = 579_594, _cu_const("kStagePos"), _cu_const("kStageThreads")
+    by_row = -(-(M // pos) // threads)
+    waves = _cu_const("kStageWaves") * (2048 // threads) * 132
+    assert _staged_chunks(1, M) == by_row and by_row * threads * pos >= M
+    assert _staged_chunks(1024, M) == -(-waves // 1024) and 1024 * _staged_chunks(1024, M) >= waves
+    assert _staged_chunks(1 << 20, M) == 1
 
 
 # ---------------------------------------------------------------------------
