@@ -31,7 +31,10 @@ Phases (any failure raises and the exit code is non-zero):
 6. secure kernels: the keyed and staged secure-mask kernels and the
    threshold mask against their twins at the secure path's shapes and
    ragged ones; the staged flat form (B=1, K=5) bitwise at M=579,594 and
-   at an odd M, L2 hot and evicted;
+   at an odd M, L2 hot and evicted; the threshold mask bitwise by int32
+   views at one node's P (L2 hot and evicted), at x[1:] and x[3:], with
+   -0.0, +-inf and NaN at t = 0, and over the whole state (its device time,
+   bound and share on a line of its own);
 7. entry points: ``topk_mask_approx``, ``secure_mask_apply_nodes``,
    ``secure_mask_apply``, ``abs_histogram`` and ``gossip_mix``, each
    kernel's launches read around that run (and around each flat form);
@@ -381,7 +384,7 @@ def sdpa_backend(names):
 
 
 def check(label, kernel, twin, library, bound, tol=None, library_covers=None, plain_iters=3,
-          yardsticks=None, l2_resident=False):
+          yardsticks=None, l2_resident=False, bits=False):
     """Run the kernel and its twin once on the same inputs and hold every
     output together: bitwise when ``tol`` is None, else
     |k - t| <= tol + tol * |t| everywhere.  Time the kernel, the twin
@@ -402,7 +405,8 @@ def check(label, kernel, twin, library, bound, tol=None, library_covers=None, pl
     each launch by a write over a 256 MiB scratch buffer (not counted; the
     write's dirty lines then flush back to memory while the kernel runs),
     ``device_evicted_by_read_ms`` with it cleared by a read of that buffer
-    (clean lines: the kernel's own traffic alone)."""
+    (clean lines: the kernel's own traffic alone).  ``bits``: hold fp32
+    outputs by their int32 views (a -0.0 is not a +0.0)."""
     import torch
 
     before = read_launches()
@@ -415,7 +419,9 @@ def check(label, kernel, twin, library, bound, tol=None, library_covers=None, pl
     torch.cuda.synchronize()
     ok, max_abs, scale = True, 0.0, 0.0
     for a, b in zip(got, want):
-        if tol is None:
+        if tol is None and bits and a.dtype == torch.float32:
+            ok = ok and torch.equal(a.view(torch.int32), b.view(torch.int32))
+        elif tol is None:
             ok = ok and torch.equal(a, b)
         a, b = a.reshape(-1), b.reshape(-1)
         for i in range(0, a.numel(), CMP_ELEMS):  # bounded temporaries
@@ -909,21 +915,40 @@ def phase_secure_kernels(int_rate):
           lambda: sm.secure_mask_apply_rows_ref(xr, rr, br, sr), None,
           staged_bound(1003, sr), tol=1e-6)
 
-    # the threshold mask, at the histogram selection's own thresholds
+    # the threshold mask, at the histogram selection's own thresholds, held
+    # by the values' int32 views
     x1 = torch.randn(p, generator=gen, device=dev)
     t1 = sp.topk_threshold(x1, MAIN_K)
     out["threshold_mask"] = check(
         f"threshold_mask M={p}", lambda: sp.threshold_mask(x1, t1),
-        lambda: sp.threshold_mask_ref(x1, t1), None, mask_bound(p), l2_resident=True,
+        lambda: sp.threshold_mask_ref(x1, t1), None, mask_bound(p), l2_resident=True, bits=True,
         library_covers="none: no one PyTorch call returns both the kept values and the mask")
+    # x 4 and 12 bytes past a 16-byte boundary: 4-byte loads of x
+    for off in (1, 3):
+        check(f"threshold_mask M={p - off} x[{off}:]",
+              lambda off=off: sp.threshold_mask(x1[off:], t1),
+              lambda off=off: sp.threshold_mask_ref(x1[off:], t1), None, mask_bound(p - off),
+              bits=True)
+    # signed zeros, infinities and NaN at every phase of a chunk, t = 0: a
+    # kept -0.0 stays -0.0, a NaN is dropped as +0.0
+    xe = x1.clone()
+    special = torch.tensor([-0.0, 0.0, float("inf"), float("-inf"), float("nan")], device=dev)
+    pick = (torch.arange(p, device=dev) * 7 + 3) % 11
+    xe[pick < 5] = special[pick[pick < 5]]
+    check(f"threshold_mask M={p - 1} x[1:] -0.0, +-inf, NaN at t=0",
+          lambda: sp.threshold_mask(xe[1:], 0.0), lambda: sp.threshold_mask_ref(xe[1:], 0.0),
+          None, mask_bound(p - 1), bits=True)
     xf = torch.randn(n * p, generator=gen, device=dev)
     tf = sp.topk_threshold(xf, n * MAIN_K)
-    check(f"threshold_mask M={n * p}", lambda: sp.threshold_mask(xf, tf),
-          lambda: sp.threshold_mask_ref(xf, tf), None, mask_bound(n * p))
+    full = out["threshold_mask"]["full_width"] = check(
+        f"threshold_mask M={n * p}", lambda: sp.threshold_mask(xf, tf),
+        lambda: sp.threshold_mask_ref(xf, tf), None, mask_bound(n * p), bits=True)
+    print(f"[kernel] threshold_mask full shape M={n * p}: device_ms={full['device_ms']} "
+          f"bound_ms={full['bound_ms']} share={full['bound_ms'] / full['device_ms']}", flush=True)
     xo = torch.randn(1003, generator=gen, device=dev)
     xo[17] = float("nan")
     check("threshold_mask M=1003 with a NaN", lambda: sp.threshold_mask(xo, 0.5),
-          lambda: sp.threshold_mask_ref(xo, 0.5), None, mask_bound(1003))
+          lambda: sp.threshold_mask_ref(xo, 0.5), None, mask_bound(1003), bits=True)
     del xf
     torch.cuda.empty_cache()
     return out

@@ -53,8 +53,33 @@
 // else 0; a NaN is dropped.  x (M,) fp32, t one fp32 on the device (the
 // threshold the histogram pass picked, so no host read sits between them),
 // vals (M,) fp32, mask (M,) bytes.  Replaces _mask_kernel behind
-// threshold_mask in src/repro/kernels/sparsify.py.  Bound: bytes, 9 per
-// element for a compare and a select.
+// threshold_mask in src/repro/kernels/sparsify.py.
+//
+// Bound: bytes, 9 per element (x read, the values and the mask written)
+// against a compare and a select.  A thread step takes one 4-element chunk:
+// one 16-byte load of x, one 16-byte store of the values and one 4-byte
+// store of four packed keep bytes, each a coalesced access of the warp and
+// each with the streaming hint; the grid is one block per kThreads *
+// kMaskVecs chunks, up to kMaskWaves grids of resident blocks (the whole
+// state, 1024 nodes' P, is 579,555 blocks, under that cap), and the loop
+// strides over any rest.  The threshold is read once per thread.  At one
+// node's P (579,594 elements, 5.2 MB, 1.6 us at the memory rate) the time
+// is the launch and one round trip to memory, where the kernel before it
+// (one element a thread step, four steps a thread) made four.  Over the
+// whole state, grids of 1 to 16 waves that loop, with 1 to 8 chunks a
+// thread loaded before any store, were 6-17% slower than this grid, which
+// is as fast as the kernel before it: many short blocks keep the addresses
+// in flight at any moment in one narrow window of memory.  The hints took
+// a tenth off the time at one node's P and changed at most 1% over the
+// whole state (tools/ab_threshold_mask.py, PERF.md).
+//
+// Alignment: the values and the mask are the wrapper's own allocations,
+// so the launcher takes them 16- and 4-byte aligned and refuses others
+// (cudaErrorInvalidValue); the chunks start at element 0 and a tail of up
+// to 3 elements follows them, one a thread.  x may start anywhere on 4
+// bytes (a slice such as x[1:]); where it is not 16-byte aligned the chunks
+// load x as four plain 4-byte words (the warp's four loads cover the same
+// 512 bytes).
 //
 // Plain C interface (loaded with ctypes); each entry point returns
 // cudaGetLastError() after the launch.
@@ -62,6 +87,8 @@
 #include <float.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -75,7 +102,8 @@ constexpr int kMinBlocks = 2048 / kThreads;  // resident blocks per SM the regis
 constexpr int kMinVecs = 512;   // least vectors a block counts (when P allows)
 constexpr int kWaves = 8;       // the grid: kWaves x resident blocks of the card
 constexpr int kMaxEdges = 1024;
-constexpr int kMaskItems = 4;  // elements per thread of the threshold mask
+constexpr int kMaskVecs = 1;      // threshold mask: 4-element chunks a thread step (all loads first)
+constexpr int kMaskWaves = 1024;  // threshold mask: the grid, at most kMaskWaves x resident blocks
 
 struct alignas(4 * kVec) Pack { float v[kVec]; };
 
@@ -256,12 +284,63 @@ abs_histogram_rows_kernel(const float* __restrict__ x, int64_t ldx, int64_t P,
   }
 }
 
+// The chunks' 16-byte loads and their stores, with the streaming hint
+// (evict first: each byte is touched once).
+__device__ __forceinline__ float4 load_x4(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void store_vals4(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);
+}
+__device__ __forceinline__ void store_mask4(uint8_t* p, uint32_t w) {
+  __stcs(reinterpret_cast<unsigned int*>(p), w);
+}
+
+// The V = M / 4 chunks, kMaskVecs a thread: chunk c = base + u kThreads of
+// the block step at base; then elements [4 V, M) one a thread (kVecX: x is
+// 16-byte aligned).
+template <bool kVecX>
 __global__ void __launch_bounds__(kThreads)
 threshold_mask_kernel(const float* __restrict__ x, int64_t M, const float* __restrict__ t,
                       float* __restrict__ vals, uint8_t* __restrict__ mask) {
   const float th = *t;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < M;
-       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+  const int64_t V = M / kVec;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kThreads * kMaskVecs;
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads * kMaskVecs + threadIdx.x;
+       base < V; base += step) {
+    float4 in[kMaskVecs];
+#pragma unroll
+    for (int u = 0; u < kMaskVecs; ++u) {
+      const int64_t c = base + static_cast<int64_t>(u) * kThreads;
+      if (c < V) {
+        if constexpr (kVecX) {
+          in[u] = load_x4(x + c * kVec);
+        } else {
+          const float* p = x + c * kVec;
+          in[u] = make_float4(p[0], p[1], p[2], p[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kMaskVecs; ++u) {
+      const int64_t c = base + static_cast<int64_t>(u) * kThreads;
+      if (c < V) {
+        const float e[kVec] = {in[u].x, in[u].y, in[u].z, in[u].w};
+        float o[kVec];
+        uint32_t word = 0;
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          const bool keep = fabsf(e[k]) >= th;
+          o[k] = keep ? e[k] : 0.f;
+          word |= static_cast<uint32_t>(keep) << (8 * k);
+        }
+        store_vals4(vals + c * kVec, make_float4(o[0], o[1], o[2], o[3]));
+        store_mask4(mask + c * kVec, word);
+      }
+    }
+  }
+  const int64_t i = V * kVec + static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < M) {  // the tail: fewer than kVec elements, in the first block
     const float v = x[i];
     const bool keep = fabsf(v) >= th;
     vals[i] = keep ? v : 0.f;
@@ -303,13 +382,23 @@ int abs_histogram_rows_f32(const void* x, long long ldx, int N, long long P,
 int threshold_mask_f32(const void* x, long long M, const void* t, void* vals, void* mask,
                        void* stream) {
   if (M <= 0) return 0;
-  const int64_t per_block = static_cast<int64_t>(kThreads) * kMaskItems;
-  int64_t blocks = (M + per_block - 1) / per_block;
-  if (blocks > 1 << 20) blocks = 1 << 20;  // the loop strides over the rest
-  threshold_mask_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), M, static_cast<const float*>(t),
-      static_cast<float*>(vals), static_cast<uint8_t*>(mask));
+  if (reinterpret_cast<uintptr_t>(vals) % 16 != 0 || reinterpret_cast<uintptr_t>(mask) % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int64_t per_block = static_cast<int64_t>(kThreads) * kMaskVecs;
+  int64_t blocks = std::max<int64_t>((M / kVec + per_block - 1) / per_block, 1);
+  const int64_t cap = static_cast<int64_t>(kMaskWaves) * (2048 / kThreads) * sm_count();
+  if (blocks > cap) blocks = cap;  // the loop strides over the rest
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const float*>(x);
+  const auto* tp = static_cast<const float*>(t);
+  auto* vp = static_cast<float*>(vals);
+  auto* mp = static_cast<uint8_t*>(mask);
+  if (vec_x)
+    threshold_mask_kernel<true><<<grid, kThreads, 0, st>>>(xp, M, tp, vp, mp);
+  else
+    threshold_mask_kernel<false><<<grid, kThreads, 0, st>>>(xp, M, tp, vp, mp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,7 +12,8 @@ where indices are distinct within each payload row (the twin adds in the kernel'
 rounds as it does), on sorted and on unsorted rows, and two of its launches bitwise equal; the secure masks bitwise (x = 0, one key, sign +1)
 and masked messages within 1e-6 (the kernels round as the twins do, with
 no fused multiply-add, so they are expected bitwise); the threshold mask
-bitwise; the sliding-window attention fp32 1e-4 and bf16 1e-2 (fp32
+bitwise, values by their int32 views (a kept -0.0 is not +0.0); the
+sliding-window attention fp32 1e-4 and bf16 1e-2 (fp32
 softmax in both, other summation orders; the bf16 route rounds P to bf16
 before P·V and its outputs may part by one rounding); the SSD chunk step 1e-4 (fp32 sums of up to 256 terms in
 another order).
@@ -617,11 +618,22 @@ def test_secure_round_on_gpu_launches_the_keyed_kernel_and_cancels():
     torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=1e-6)
 
 
+def _mask_bitwise(got, want):
+    """Values by their int32 views (-0.0 is not +0.0) and masks equal."""
+    (v, m), (wv, wm) = got, want
+    return torch.equal(v.view(torch.int32), wv.view(torch.int32)) and torch.equal(m, wm)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("M", [579_594, 1, 1_000_003])
-def test_threshold_mask_bitwise_on_gpu(M):
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 1003, 579_593, 579_594, 1_000_003])
+def test_threshold_mask_bitwise_on_gpu(M, offset):
+    """At every phase of x (a slice ``offset`` floats into its storage):
+    16-byte loads where x is 16-byte aligned, 4-byte ones where not, the
+    tail one element a thread."""
     dev = _card()
-    x = torch.randn(M, generator=torch.Generator(device=dev).manual_seed(M), device=dev)
+    x = torch.randn(M + offset, generator=torch.Generator(device=dev).manual_seed(M),
+                    device=dev)[offset:]
     k = max(1, M // 10)
     t = tsp.topk_threshold(x, k)
     x[M // 2] = float("nan")  # dropped by the mask
@@ -629,11 +641,51 @@ def test_threshold_mask_bitwise_on_gpu(M):
     vals, mask = tsp.threshold_mask(x, t)
     torch.cuda.synchronize()
     assert tsp.threshold_mask.launches == before + 1
-    wv, wm = tsp.threshold_mask_ref(x, t)
-    assert torch.equal(mask, wm) and torch.equal(vals, wv) and not mask[M // 2]
+    assert _mask_bitwise((vals, mask), tsp.threshold_mask_ref(x, t)) and not mask[M // 2]
     y = torch.randn(M, generator=torch.Generator(device=dev).manual_seed(1), device=dev)
     _, m2, t2 = tsp.topk_mask_approx(y, k)
     assert int(m2.sum()) >= k and torch.equal(t2, tsp.topk_threshold(y, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("t", [0.0, 0.5, float("inf"), float("nan"), -1.0])
+@pytest.mark.parametrize("M", [5, 1003, 579_594])
+def test_threshold_mask_edge_values_bitwise_on_gpu(M, t, offset):
+    """Signed zeros, infinities and NaN spread over the chunks and the
+    tail: a kept -0.0 stays -0.0, +-inf is kept at any finite t, a
+    NaN is dropped, a NaN threshold drops everything."""
+    dev = _card()
+    x = torch.randn(M + offset, generator=torch.Generator(device=dev).manual_seed(M + 7),
+                    device=dev)[offset:]
+    special = torch.tensor([-0.0, 0.0, float("inf"), float("-inf"), float("nan")], device=dev)
+    pick = (torch.arange(M, device=dev) * 7 + 3) % 11  # specials at every phase of a chunk
+    x[pick < 5] = special[pick[pick < 5]]
+    got = tsp.threshold_mask(x, t)
+    torch.cuda.synchronize()
+    want = tsp.threshold_mask_ref(x, t)
+    assert _mask_bitwise(got, want)
+    assert not got[1][x.isnan()].any()
+    if t == t:  # a finite or infinite t keeps +-inf exactly where |inf| >= t
+        assert torch.equal(got[1][x.isinf()], torch.full_like(x[x.isinf()], float("inf")) >= t)
+    else:
+        assert not bool(got[1].any())
+
+
+@pytest.mark.gpu
+def test_threshold_mask_launcher_refuses_unaligned_outputs():
+    """The wrapper's outputs are its own aligned allocations; the C entry
+    point refuses values off 16 bytes or a mask off 4 rather than write
+    them as vectors."""
+    dev = _card()
+    x = torch.randn(64, device=dev)
+    t = torch.zeros(1, device=dev)
+    vals, mask = torch.empty(65, device=dev), torch.empty(68, dtype=torch.uint8, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    entry = tsp._entry("threshold_mask_f32")
+    assert entry(x.data_ptr(), 64, t.data_ptr(), vals[1:].data_ptr(), mask.data_ptr(), stream)
+    assert entry(x.data_ptr(), 64, t.data_ptr(), vals.data_ptr(), mask[2:].data_ptr(), stream)
+    assert entry(x.data_ptr(), 64, t.data_ptr(), vals.data_ptr(), mask.data_ptr(), stream) == 0
 
 
 @pytest.mark.gpu

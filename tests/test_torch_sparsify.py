@@ -162,6 +162,44 @@ def test_threshold_mask_cpu_takes_the_twin():
         tsp.threshold_mask(torch.ones(4, device="meta"), 0.5)
 
 
+def _mask_edge_case(case):
+    """(x, t) of an edge case of the mask: signed zeros, infinities, NaN."""
+    x = _rows(1, 64, 5)[0]
+    x[:6] = [-0.0, 0.0, np.inf, -np.inf, np.nan, 1.0]
+    return {
+        "signed_zero_at_t0": (x, 0.0),
+        "inf_at_finite_t": (x, 0.5),
+        "t_inf": (x, np.inf),
+        "t_nan": (x, np.nan),
+        "tiny_1": (x[:1], 0.0),
+        "tiny_2": (x[2:4], 1e30),
+        "tiny_3": (x[:3], -1.0),
+        "tiny_5": (x[:5], 0.0),
+        "slice_at_1": (x[1:], 0.0),
+    }[case]
+
+
+@pytest.mark.parametrize("case", ["signed_zero_at_t0", "inf_at_finite_t", "t_inf", "t_nan",
+                                  "tiny_1", "tiny_2", "tiny_3", "tiny_5", "slice_at_1"])
+def test_threshold_mask_edge_cases_bitwise(case):
+    """The twin's values equal the Pallas kernel's and the oracle's bit for
+    bit (int32 views: a kept -0.0 stays -0.0, a NaN is dropped as +0.0, a
+    NaN threshold drops everything), and so do the masks; the slice starts
+    4 bytes past its tensor's storage, as ``x[1:]`` does on the card."""
+    xn, t = _mask_edge_case(case)
+    base = torch.tensor(np.concatenate([[np.float32(7.0)], xn]).astype(np.float32))
+    x = base[1:]  # a view at a 4-byte offset
+    vals, mask = tsp.threshold_mask(x, t)
+    for want in (jops.threshold_mask, jref.threshold_mask_ref):
+        wv, wm = want(jnp.asarray(xn), np.float32(t))
+        np.testing.assert_array_equal(vals.numpy().view(np.int32), np.asarray(wv).view(np.int32))
+        np.testing.assert_array_equal(mask.numpy(), np.asarray(wm))
+    if case == "signed_zero_at_t0":
+        assert vals[0].numpy().view(np.int32) == np.float32(-0.0).view(np.int32) and mask[0]
+    if case == "t_nan":
+        assert not mask.any() and not vals.numpy().view(np.int32).any()
+
+
 # --- the CUDA kernel's index arithmetic (csrc/sparsify.cu), modelled in
 # plain torch: the kernel itself runs only on the card
 # (tests/test_torch_kernels_gpu.py)
@@ -375,3 +413,87 @@ def test_kernel_grid_fills_the_card():
     ran 71."""
     assert _hist_blocks_per_row(1024, 579_594) * 1024 >= 4 * 132
     assert 200 <= _hist_blocks_per_row(1, 579_594) <= 2000
+
+
+def _mask_plan(M, x_off=0, sms=132, waves=None):
+    """threshold_mask_f32's plan (csrc/sparsify.cu) for x starting x_off
+    floats past a 16-byte boundary (the values and the mask are the
+    wrapper's own, aligned allocations): the V 4-element chunks from
+    element 0, the first tail element, the grid (at most ``waves`` grids of
+    resident blocks, the source's kMaskWaves unless given), and whether the
+    chunks load x as 16-byte vectors."""
+    vec, T, K = _cu_const("kVec"), _cu_const("kThreads"), _cu_const("kMaskVecs")
+    V = M // vec
+    blocks = max(-(-V // (T * K)), 1)
+    blocks = min(blocks, (waves or _cu_const("kMaskWaves")) * (2048 // T) * sms)
+    return {"V": V, "tail": V * vec, "blocks": blocks, "vec_x": x_off % vec == 0}
+
+
+def _mask_elements(M, plan):
+    """Every element the kernel's threads take, in one array: each thread's
+    chunks base + u kThreads (u < kMaskVecs) of each block step, then the
+    tail, one element a thread from the first thread of the grid."""
+    vec, T, K = _cu_const("kVec"), _cu_const("kThreads"), _cu_const("kMaskVecs")
+    V, tail, B = plan["V"], plan["tail"], plan["blocks"]
+    first = (np.arange(B)[:, None] * T * K + np.arange(T)[None, :]).ravel()
+    chunks = []
+    for j in range(-(-V // (B * T * K)) + 1):
+        base = first + j * B * T * K
+        for u in range(K):
+            c = base + u * T
+            chunks.append(c[(base < V) & (c < V)])
+    c = np.concatenate(chunks)
+    body = (vec * c[:, None] + np.arange(vec)[None, :]).ravel()
+    i = tail + np.arange(B * T)
+    return np.concatenate([body, i[i < M]])
+
+
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 6, 7, 8, 9, 1003, 65_543, 579_593, 579_594])
+def test_mask_plan_takes_every_element_once(M):
+    """The chunks and the tail cover [0, M) exactly once at every phase of
+    x, on the source's grid and on grids capped low enough that the loop
+    strides; x loads as vectors exactly where it is 16-byte aligned."""
+    for x_off in range(4):
+        for sms, waves in ((132, None), (1, 1), (3, 1)):
+            plan = _mask_plan(M, x_off, sms=sms, waves=waves)
+            got = _mask_elements(M, plan)
+            np.testing.assert_array_equal(np.bincount(got, minlength=M), np.ones(M, np.int64))
+        assert M - plan["tail"] < 4 and plan["blocks"] >= 1
+        assert plan["vec_x"] == (x_off == 0)
+
+
+@pytest.mark.parametrize("waves", [None, 1, 4])
+def test_mask_plan_covers_the_whole_state(waves):
+    """At the whole state (1024 nodes' P) the block steps cover the V
+    chunks once, on the source's grid (one block step a block) and on grids
+    of a few waves that stride: each residue r of the grid step is one
+    (block, u, thread) start, and r < V takes ceil((V - r) / step) chunks
+    (arithmetic only)."""
+    T, K = _cu_const("kThreads"), _cu_const("kMaskVecs")
+    M = 1024 * 579_594
+    plan = _mask_plan(M, waves=waves)
+    assert (plan["tail"], plan["vec_x"]) == (M - M % 4, True)
+    B, V = plan["blocks"], plan["V"]
+    step = B * T * K
+    if waves is None:  # one step: the last block starts below V, its end reaches V
+        assert (B - 1) * T * K < V <= step
+        return
+    assert B == waves * (2048 // T) * 132
+    r = (np.arange(B)[:, None, None] * T * K + np.arange(K)[None, :, None] * T
+         + np.arange(T)[None, None, :]).ravel()
+    np.testing.assert_array_equal(np.sort(r), np.arange(step))
+    assert int(np.maximum(0, -(-(V - r) // step)).sum()) == V
+
+
+@pytest.mark.parametrize("M", [1, 1003, 579_594, 1024 * 579_594])
+def test_mask_grid_stays_within_its_waves(M):
+    """The grid never passes kMaskWaves waves of resident blocks (8 of 256
+    threads an SM) on any SM count, and takes every chunk in one block step
+    up to that cap: one node's P and the whole state on 132 SMs."""
+    T, K = _cu_const("kThreads"), _cu_const("kMaskVecs")
+    cap = _cu_const("kMaskWaves") * (2048 // T)
+    for sms in (1, 66, 132):
+        plan = _mask_plan(M, sms=sms)
+        assert 1 <= plan["blocks"] <= cap * sms
+    plan = _mask_plan(M)
+    assert plan["blocks"] * T * K >= plan["V"]
